@@ -5,20 +5,36 @@
 
 Phases, run in this order (each raises on failure; the exit code is
 non-zero on any fault):
-  build   build the CUDA kernel from csrc/ and print nvcc's register report
-  kernel  fused kernel vs its plain PyTorch version at config 2's (7,7)
-          sector and the nbath=4 (5,4) sector; CUDA-event times of the
-          kernel, the plain version and KronMatvec
-  golden  ed_solve at norb=2, nbath=4 through the fused kernel vs the
-          edipack_tpu reference numbers in tests/data/
+  build   build the CUDA kernels from csrc/ (one nvcc per source, started
+          together) and print nvcc's register report of each kernel
+  kernel  every kernel against its plain PyTorch version, with CUDA-event
+          times of both and of the PyTorch yardstick:
+          B1 (f64 fused matvec) and B2 (f32) at config 2's (7,7) sector and
+          the nbath=4 (5,4) sector, B2 also against B1; B3 (chained f32
+          power steps) at (7,7), niter=8 against the plain loop, then the
+          power-step entry at niter=100, timed per step; B4 (dense-tile
+          Kron) at (7,7) and the nbath=2 (3,2) sector, also against f32
+          KronMatvec
+  golden  ed_solve at norb=2, nbath=4 through the fused kernels, f64 (B1)
+          and f32 (B2, twin sectors on), vs the edipack_tpu reference
+          numbers in tests/data/ (the f32 solve also vs the f64 numbers of
+          the same configuration in that file)
   solve   config 2 (norb=2, nbath=6 Kanamori) through ed_init_solver ->
-          ed_set_hloc -> ed_solve on the card, cold and warm, with the
-          ground-state sector's e0 re-derived through KronMatvec
+          ed_set_hloc -> ed_solve on the card, cold, in f64 (B1) and in f32
+          (B2); the f64 ground-state sector's e0 re-derived through
+          KronMatvec; the (7,7) sector's lowest level through Lanczos on the
+          dense-tile operator (B4) against the f64 solve's
 
-The line before the last is the kernel report (JSON), printed only once
-every phase has run: ``launches`` is the kernel's launch count in the
-cold config 2 solve, ``max_abs_err``, ``ms`` and ``plain_ms`` come from
-the kernel phase at the (7,7) and (5,4) shapes. The last line is
+Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
+power-step entry for B3, the dense-tile Lanczos for B4) runs with every
+launch counter set to 0 just before it and read just after. The line before
+the last is the kernel report (JSON), printed only once every phase has
+run: ``launches`` from those paths, ``max_abs_err``, ``ms``, ``plain_ms``
+and ``library_ms`` from the kernel phase at config 2's (7,7) sector (B3:
+per power step), ``bound_ms`` computed from those inputs: the function's
+work on this data (two operations per nonzero of the sector's H, not the
+dense 128x128 block products the kernels run) against its bytes. B3's
+``launches`` counts kernel launches, two per power step. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repository,
 the script fails before printing any result.
 """
@@ -33,12 +49,35 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden_n2b4.json")
+DATA = os.path.join(ROOT, "tests", "data")
+GOLDEN = os.path.join(DATA, "torch_port_golden_n2b4.json")
+GOLDEN_F32 = os.path.join(DATA, "torch_port_golden_f32_n2b4.json")
 KANAMORI = dict(uloc=[2.0, 2.0], ust=1.2, jh=0.2, jx=0.15, jp=0.15)
-KERNEL_RTOL = 1e-12
+# tests/test_pallas_kron.py's sector model
+KRON_SMALL = dict(uloc=[2.0, 1.5], ust=0.7, jh=0.1, jx=0.1, jp=0.1, xmu=0.2)
+KERNEL_RTOL = 1e-12       # B1 vs its plain version (f64, other sum order)
+F32_RTOL = 3e-6           # B2 vs plain and vs B1 (tests/test_fused.py:53)
+POWER_TOL = 1e-5          # B3 norms and final vector (tests/test_fused.py)
+KRON_RTOL = 1e-5          # B4 at (7,7)
+KRON_ATOL = 1e-4          # B4 at (3,2) (tests/test_pallas_kron.py:37)
 TOL = dict(e0=1e-10, dens=1e-8, docc=1e-8, energies=1e-8, gimp=1e-8,
            sigma=1e-8)
+# f32 golden: against the same configuration's f64 solve (the file's "f64"
+# numbers), e0 and evals 3e-5, dens, docc and energies 1e-5, G 1e-4, Σ 1e-3;
+# against edipack_tpu's f32 solve the same, except e0, evals and G at 3x
+# that solve's own distance from f64 (e0 1.11e-4: the Ritz value of its f32
+# recurrence; G 8.0e-5)
+TOL_F32_EXACT = dict(e0=3e-5, dens=1e-5, docc=1e-5, energies=1e-5, gimp=1e-4,
+                     sigma=1e-3)
+TOL_F32 = dict(TOL_F32_EXACT, e0=3.3e-4, gimp=2.4e-4)
+E0_F32_RTOL = 1e-5        # config 2: f32 e0 vs f64 e0, relative
 NMATS = 32
+DEVICE = "cuda"
+POWER_NITER = 100
+# H100 SXM peaks (NVIDIA data sheet, 700 W): FP64 tensor core and FP32
+# 67 TFLOP/s, HBM3 3.35 TB/s
+PEAK_FLOPS = {"f64": 67e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -50,6 +89,20 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts() -> None:
+    from edipack_tpu_torch.ops import fused_matvec as fm
+    from edipack_tpu_torch.ops import kron_tiles as kt
+    fm.launches = fm.launches_f32 = fm.power_launches = 0
+    kt.launches = 0
+
+
+def read_counts() -> dict:
+    from edipack_tpu_torch.ops import fused_matvec as fm
+    from edipack_tpu_torch.ops import kron_tiles as kt
+    return dict(B1=fm.launches, B2=fm.launches_f32, B3=fm.power_launches,
+                B4=kt.launches)
 
 
 def cuda_ms(fn, reps: int = 25, warm: int = 3) -> float:
@@ -70,17 +123,72 @@ def cuda_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def sector_op(norb: int, nbath: int, nup: int, ndw: int):
+def bound(flops: float, nbytes: float, kind: str, dense_flops: float
+          ) -> dict:
+    """The least time of the work on the card: the larger of its
+    operations over the peak rate and its bytes over the memory rate.
+    ``dense_flops``, the operations the kernel's dense tiles run, is kept
+    for the report."""
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_mem),
+                bound_by="operations" if t_ops >= t_mem else "bytes",
+                gflop=flops * 1e-9, mbytes=nbytes * 1e-6,
+                dense_gflop=dense_flops * 1e-9)
+
+
+def fused_bound(fop, kind: str, extra_flops: float = 0.0) -> dict:
+    """One fused matvec of this sector as the function it computes: two
+    operations per nonzero of H (``fop.nnz``: the diagonal, both hop
+    factors and the Jx/Jp terms) and the diagonal's rank-8 products; V3
+    read once, W3 written once, the factor blocks and tables read once."""
+    from edipack_tpu_torch.ops.fused_normal import BLK, DIAG_RANK
+    es = 8 if kind == "f64" else 4
+    nblk = len(fop.up_src) + len(fop.dw_src)
+    n = fop.ddp * fop.dup
+    flops = 2 * fop.nnz + 2 * DIAG_RANK * fop.dd * fop.du + extra_flops
+    nbytes = (es * (2 * n + nblk * BLK * BLK + (fop.ddp + fop.dup) * DIAG_RANK)
+              + 4 * (2 * nblk + fop.ddp // BLK + fop.dup // BLK + 2))
+    dense = (2 * BLK * BLK * (fop.ddp * len(fop.up_src)
+                              + fop.dup * len(fop.dw_src))
+             + 2 * (DIAG_RANK + 1) * n
+             + 2 * sum(r.ld * r.lu for r in fop.nl_runs) + extra_flops)
+    return bound(flops, nbytes, kind, dense)
+
+
+def kron_bound(mv) -> dict:
+    """One dense-tile Kron matvec as the function it computes: two
+    operations per nonzero of Hupᵀ for each row of V and per nonzero of Hdw
+    for each column, and D⊙V with the two sums; V, D, Hupᵀ and Hdw read
+    once, the output written once."""
+    import torch
+    n = mv.ddp * mv.dup
+    flops = (2 * (int(torch.count_nonzero(mv.hup_t)) * mv.ddp
+                  + int(torch.count_nonzero(mv.hdw)) * mv.dup) + 3 * n)
+    nbytes = 4 * (3 * n + mv.ddp * mv.ddp + mv.dup * mv.dup)
+    return bound(flops, nbytes, "f32",
+                 2 * n * (mv.ddp + mv.dup) + 3 * n)
+
+
+def sector_op(norb: int, nbath: int, nup: int, ndw: int, model=None,
+              hloc=None):
     from edipack_tpu_torch.bath.dmft_bath import init_bath
     from edipack_tpu_torch.config import default_config
     from edipack_tpu_torch.models.normal import build_normal_sector_op
     from edipack_tpu_torch.sectors import SectorTable
     from edipack_tpu_torch.umatrix import build_umatrix
-    cfg = default_config(norb=norb, nbath=nbath, nspin=1, **KANAMORI)
+    cfg = default_config(norb=norb, nbath=nbath, nspin=1,
+                         **(model or KANAMORI))
     sec = SectorTable(cfg).by_qn(("n", (nup,), (ndw,)))
-    hloc = np.zeros((1, 1, norb, norb))
-    return build_normal_sector_op(cfg, sec, hloc, build_umatrix(cfg),
+    h = np.zeros((1, 1, norb, norb))
+    if hloc is not None:
+        h[0, 0] = hloc
+    return build_normal_sector_op(cfg, sec, h, build_umatrix(cfg),
                                   init_bath(cfg))
+
+
+def _rel(out, ref) -> float:
+    return float((out - ref).abs().max() / ref.abs().max())
 
 
 def phase_build(report: dict) -> None:
@@ -88,58 +196,182 @@ def phase_build(report: dict) -> None:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[build] kernel library {_build.library_path().name} ready in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+          f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} "
+          f"s, {len(_build.SOURCES)} sources)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(k in line for k in ("Compiling entry", "registers", "spill",
+                                   "error")):
             print(f"[build]   {line.strip()}")
 
 
-def phase_kernel(report: dict) -> None:
+def _fused_shape(report: dict, label: str, op, norb: int) -> None:
+    """B1 and B2 at one sector's shape."""
     import torch
     from edipack_tpu_torch.ops import fused_matvec as fm
     from edipack_tpu_torch.ops.fused_normal import build_fused_normal
     from edipack_tpu_torch.ops.matvec import KronMatvec
-    dev = torch.device("cuda")
-    for label, (norb, nbath, nup, ndw) in (("(7,7) config 2", (2, 6, 7, 7)),
-                                           ("(5,4) nbath=4", (2, 4, 5, 4))):
-        op = sector_op(norb, nbath, nup, ndw)
-        fop = build_fused_normal(op, norb)
-        if fop is None:
-            fail(f"{label}: build_fused_normal returned None")
-        mv = fm.FusedKron(fop, dev)
-        rng = np.random.default_rng(11)
-        v_orig = torch.as_tensor(rng.standard_normal(fop.dd * fop.du),
-                                 device=dev)
-        v3 = mv.to_internal_flat(v_orig).view(-1, 128)   # padding zeroed
-        ref = fm.fused_matvec_plain(v3, mv.ops)
-        out = fm.fused_matvec(v3, mv.ops)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        # the kernel against the dense-factor operator, through the layout
-        kron = KronMatvec(op, dev)
-        kref = kron(v_orig)
-        rel_k = float((mv.from_internal_flat(out.view(-1)) - kref).abs().max()
-                      / kref.abs().max())
-        t_k = cuda_ms(lambda: fm.fused_matvec(v3, mv.ops))
-        t_p = cuda_ms(lambda: fm.fused_matvec_plain(v3, mv.ops))
-        t_x = cuda_ms(lambda: kron(v_orig))
-        nnz = fop.nnz
-        print(f"[kernel] {label}: dim {fop.dd}x{fop.du} (padded "
-              f"{fop.ddp}x{fop.dup}), nnz {nnz:.4e}, up blocks "
-              f"{len(fop.up_src)}, dw blocks {len(fop.dw_src)}, runs "
-              f"{len(fop.nl_runs)}")
-        print(f"[kernel]   kernel vs plain: max_abs_err {err:.3e}, rel "
-              f"{rel:.3e} (limit {KERNEL_RTOL}); vs KronMatvec rel {rel_k:.3e}")
-        for name, t in (("kernel", t_k), ("plain", t_p), ("KronMatvec", t_x)):
-            print(f"[kernel]   {name:10s} {t:9.4f} ms  {nnz / t * 1e-6:8.3f} "
-                  f"Gnnz/s")
-        if not (rel <= KERNEL_RTOL and rel_k <= KERNEL_RTOL):
-            fail(f"{label}: kernel disagrees (rel {rel:.3e}, vs Kron "
-                 f"{rel_k:.3e})")
-        report.setdefault("shapes", []).append(
-            dict(label=label, max_abs_err=err, rel=rel, ms=t_k, plain_ms=t_p,
-                 kron_ms=t_x))
+    dev = torch.device(DEVICE)
+    fop = build_fused_normal(op, norb)
+    if fop is None:
+        fail(f"{label}: build_fused_normal returned None")
+    mv64 = fm.FusedKron(fop, dev)
+    mv32 = fm.FusedKron(fop, dev, dtype=torch.float32)
+    rng = np.random.default_rng(11)
+    v_orig = torch.as_tensor(rng.standard_normal(fop.dd * fop.du), device=dev)
+    v64 = mv64.to_internal_flat(v_orig).view(-1, 128)    # padding zeroed
+    v32 = v64.float()
+    print(f"[kernel] {label}: dim {fop.dd}x{fop.du} (padded "
+          f"{fop.ddp}x{fop.dup}), nnz {fop.nnz:.4e}, up blocks "
+          f"{len(fop.up_src)}, dw blocks {len(fop.dw_src)}, runs "
+          f"{len(fop.nl_runs)}")
+    # B1 against its plain version and the dense-factor operator
+    out64 = fm.fused_matvec(v64, mv64.ops)
+    ref64 = fm.fused_matvec_plain(v64, mv64.ops)
+    kron64 = KronMatvec(op, dev)
+    kref = kron64(v_orig)
+    torch.cuda.synchronize()
+    err64 = float((out64 - ref64).abs().max())
+    rel64 = _rel(out64, ref64)
+    rel_k = _rel(mv64.from_internal_flat(out64.view(-1)), kref)
+    # B2 against its plain version and against B1's f64 product
+    out32 = fm.fused_matvec(v32, mv32.ops)
+    ref32 = fm.fused_matvec_plain(v32, mv32.ops)
+    torch.cuda.synchronize()
+    err32 = float((out32 - ref32).abs().max())
+    rel32 = _rel(out32, ref32)
+    rel32_b1 = _rel(out32.double(), out64)
+    kron32 = KronMatvec(op, dev, dtype=torch.float32)
+    v_orig32 = v_orig.float()
+    times = dict(
+        b1=cuda_ms(lambda: fm.fused_matvec(v64, mv64.ops)),
+        b1_plain=cuda_ms(lambda: fm.fused_matvec_plain(v64, mv64.ops)),
+        kron64=cuda_ms(lambda: kron64(v_orig)),
+        b2=cuda_ms(lambda: fm.fused_matvec(v32, mv32.ops)),
+        b2_plain=cuda_ms(lambda: fm.fused_matvec_plain(v32, mv32.ops)),
+        kron32=cuda_ms(lambda: kron32(v_orig32)))
+    b1b, b2b = fused_bound(fop, "f64"), fused_bound(fop, "f32")
+    print(f"[kernel]   B1 vs plain: max_abs_err {err64:.3e}, rel {rel64:.3e} "
+          f"(limit {KERNEL_RTOL}); vs KronMatvec rel {rel_k:.3e}")
+    print(f"[kernel]   B2 vs plain: max_abs_err {err32:.3e}, rel {rel32:.3e}; "
+          f"vs B1 rel {rel32_b1:.3e} (limit {F32_RTOL})")
+    for name, t in times.items():
+        print(f"[kernel]   {name:9s} {t:9.4f} ms  {fop.nnz / t * 1e-6:8.3f} "
+              f"Gnnz/s")
+    print(f"[kernel]   bound: B1 {b1b['bound_ms']:.4f} ms ({b1b['bound_by']}, "
+          f"{b1b['gflop']:.3f} GFLOP, {b1b['mbytes']:.1f} MB), B2 "
+          f"{b2b['bound_ms']:.4f} ms ({b2b['bound_by']}, {b2b['mbytes']:.1f} "
+          f"MB); the kernels' dense block products {b1b['dense_gflop']:.2f} "
+          f"GFLOP")
+    if not (rel64 <= KERNEL_RTOL and rel_k <= KERNEL_RTOL):
+        fail(f"{label}: B1 disagrees (rel {rel64:.3e}, vs Kron {rel_k:.3e})")
+    if not (rel32 <= F32_RTOL and rel32_b1 <= F32_RTOL):
+        fail(f"{label}: B2 disagrees (rel {rel32:.3e}, vs B1 "
+             f"{rel32_b1:.3e})")
+    report.setdefault("fused", []).append(dict(
+        label=label, fop=fop, err64=err64, err32=err32, bound64=b1b,
+        bound32=b2b, **times))
+
+
+def _power(report: dict, fop) -> None:
+    """B3 at config 2's (7,7): the kernel against the plain loop, then the
+    power-step entry (bench.py's niter=100) timed per step."""
+    import torch
+    from edipack_tpu_torch.ops import fused_matvec as fm
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal((fop.ddp, fop.dup)).astype(np.float32)
+    v[fop.dd:, :] = 0
+    v[:, fop.du:] = 0
+    v3 = torch.as_tensor(fop.to_blocked(v), device=dev)
+    ops = fm.FusedOperands(fop, dev, torch.float32)
+    w3, norms = fm.fused_power(v3, ops, 8)
+    w_ref, n_ref = fm.fused_power_plain(v3, ops, 8)
+    torch.cuda.synchronize()
+    rel_n = float(((norms - n_ref).abs() / n_ref).max())
+    unit = lambda w: w / torch.linalg.norm(w)
+    err_v = float((unit(w3) - unit(w_ref)).abs().max())
+    err_w = float((w3 - w_ref).abs().max())
+    print(f"[kernel] B3 (7,7) niter=8: norms rel {rel_n:.3e}, final vector "
+          f"{err_v:.3e} (limit {POWER_TOL}); norms {norms[:3].tolist()} ...")
+    if not (rel_n <= POWER_TOL and err_v <= POWER_TOL):
+        fail(f"B3 disagrees (norms {rel_n:.3e}, vector {err_v:.3e})")
+    plain_step = cuda_ms(lambda: fm.fused_power_plain(v3, ops, 8), reps=5) / 8
+    # the power-step entry, as bench.py drives it
+    power = fm.FusedPower(fop, POWER_NITER, dev)
+    power(v3)
+    torch.cuda.synchronize()
+    reset_counts()
+    step = cuda_ms(lambda: power(v3), reps=3, warm=0) / POWER_NITER
+    counts = read_counts()
+    b = fused_bound(fop, "f32", extra_flops=3 * fop.ddp * fop.dup)
+    print(f"[kernel] B3 power-step entry, niter={POWER_NITER}: {step:.4f} ms "
+          f"per step ({fop.nnz / step * 1e-6:.3f} Gnnz/s), plain "
+          f"{plain_step:.4f} ms per step, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); launches {counts}")
+    if counts["B3"] <= 0:
+        fail("the power-step entry did not launch B3")
+    report["power"] = dict(err=max(err_w, float((norms - n_ref).abs().max())),
+                           ms=step, plain_ms=plain_step, bound=b,
+                           launches=counts["B3"])
+
+
+def _kron_tiles(report: dict, label: str, op, strict_rel: bool) -> None:
+    """B4 at one sector's shape."""
+    import torch
+    from edipack_tpu_torch.ops import kron_tiles as kt
+    from edipack_tpu_torch.ops.matvec import KronMatvec
+    dev = torch.device(DEVICE)
+    mv = kt.KronTileMatvec(op, dev)
+    rng = np.random.default_rng(12)
+    v = torch.as_tensor(rng.standard_normal(mv.dim).astype(np.float32),
+                        device=dev)
+    vp = mv.pad(v)
+    out = kt.kron_matvec_tiles(vp, mv.d, mv.hup_t, mv.hdw)
+    ref = kt.kron_matvec_tiles_plain(vp, mv.d, mv.hup_t, mv.hdw)
+    kron32 = KronMatvec(op, dev, dtype=torch.float32)
+    kref = kron32(v)
+    got = mv(v)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    rel = _rel(out, ref)
+    err_k = float((got - kref).abs().max())
+    rel_k = _rel(got, kref)
+    times = dict(
+        b4=cuda_ms(lambda: kt.kron_matvec_tiles(vp, mv.d, mv.hup_t, mv.hdw)),
+        b4_plain=cuda_ms(lambda: kt.kron_matvec_tiles_plain(
+            vp, mv.d, mv.hup_t, mv.hdw)),
+        library=cuda_ms(lambda: vp @ mv.hup_t + mv.hdw @ vp),
+        operator=cuda_ms(lambda: mv(v)),
+        kron32=cuda_ms(lambda: kron32(v)))
+    b = kron_bound(mv)
+    print(f"[kernel] B4 {label}: {mv.dd0}x{mv.du0} padded {mv.ddp}x{mv.dup}; "
+          f"vs plain max_abs_err {err:.3e} rel {rel:.3e}; operator vs f32 "
+          f"KronMatvec max_abs_err {err_k:.3e} rel {rel_k:.3e}")
+    for name, t in times.items():
+        print(f"[kernel]   {name:9s} {t:9.4f} ms")
+    print(f"[kernel]   bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+          f"{b['gflop']:.3f} GFLOP, {b['mbytes']:.1f} MB); the kernel's "
+          f"dense tiles {b['dense_gflop']:.2f} GFLOP")
+    ok = (rel <= KRON_RTOL and rel_k <= KRON_RTOL) if strict_rel \
+        else (err <= KRON_ATOL and err_k <= KRON_ATOL)
+    if not ok:
+        fail(f"B4 {label} disagrees (rel {rel:.3e} / {rel_k:.3e}, abs "
+             f"{err:.3e} / {err_k:.3e})")
+    report.setdefault("kron", []).append(dict(label=label, err=err, bound=b,
+                                              **times))
+
+
+def phase_kernel(report: dict) -> None:
+    from edipack_tpu_torch.ops.fused_normal import build_fused_normal
+    op77 = sector_op(2, 6, 7, 7)
+    _fused_shape(report, "(7,7) config 2", op77, 2)
+    _fused_shape(report, "(5,4) nbath=4", sector_op(2, 4, 5, 4), 2)
+    _power(report, build_fused_normal(op77, 2))
+    _kron_tiles(report, "(7,7) config 2", op77, strict_rel=True)
+    _kron_tiles(report, "(3,2) nbath=2",
+                sector_op(2, 2, 3, 2, KRON_SMALL,
+                          np.array([[0.1, 0.04], [0.04, -0.1]])),
+                strict_rel=False)
 
 
 def _z(beta: float) -> np.ndarray:
@@ -147,62 +379,80 @@ def _z(beta: float) -> np.ndarray:
 
 
 def _check_close(what: str, got, want, tol: float) -> None:
+    if np.shape(got) != np.shape(want):
+        fail(f"golden {what}: shape {np.shape(got)}, expected "
+             f"{np.shape(want)}")
     dev = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
-    print(f"[golden]   {what:9s} max dev {dev:.3e} (limit {tol})")
+    print(f"[golden]   {what:13s} max dev {dev:.3e} (limit {tol})")
     if not dev <= tol:
         fail(f"golden {what}: deviation {dev:.3e} > {tol}")
 
 
-def phase_golden(report: dict) -> None:
+def _check_all(got: dict, ref: dict, tol: dict, tag: str = "") -> None:
+    cplx = lambda a: np.asarray(a)[..., 0] + 1j * np.asarray(a)[..., 1]
+    for k in ("e0", "evals", "dens", "docc", "energies", "gimp", "sigma"):
+        want = cplx(ref[k]) if k in ("gimp", "sigma") else ref[k]
+        _check_close(k + tag, got[k], want, tol["e0" if k == "evals" else k])
+
+
+def _golden(path: str, tol: dict, kernel: str, tol_f64=None) -> None:
+    """ed_solve of the golden file's configuration through ``kernel``,
+    held to the file's numbers at ``tol`` and, with ``tol_f64``, to its
+    "f64" numbers (the same configuration solved in f64)."""
     import edipack_tpu_torch.main as ed
     from edipack_tpu_torch.config import default_config
-    from edipack_tpu_torch.ops import fused_matvec as fm
-    with open(GOLDEN) as fh:
+    with open(path) as fh:
         gold = json.load(fh)
     cfg = default_config(**gold["config"])
     cfg = cfg.replace(ed_fused_matvec="always", ed_verbose=0)
-    ed.ed_init_solver(np.asarray(gold["bath"]), cfg=cfg, device="cuda")
+    ed.ed_init_solver(np.asarray(gold["bath"]), cfg=cfg, device=DEVICE)
     ed.ed_set_hloc(np.zeros((1, 1, cfg.norb, cfg.norb)))
-    fm.launches = 0
+    reset_counts()
     res = ed.ed_solve()
-    launched = fm.launches
-    z = _z(cfg.beta)
-    cplx = lambda a: np.asarray(a)[..., 0] + 1j * np.asarray(a)[..., 1]
-    print(f"[golden] norb=2 nbath=4 on cuda: e0 {res.e0:.12f} "
-          f"(ref {gold['e0']:.12f}), kernel launches {launched}")
-    _check_close("e0", res.e0, gold["e0"], TOL["e0"])
-    _check_close("evals", ed.ed_get_evals(), gold["evals"], TOL["e0"])
-    _check_close("dens", ed.ed_get_dens(), gold["dens"], TOL["dens"])
-    _check_close("docc", ed.ed_get_docc(), gold["docc"], TOL["docc"])
-    _check_close("energies", ed.ed_get_eimp(), gold["energies"],
-                 TOL["energies"])
-    _check_close("gimp", ed.ed_get_gimp(z), cplx(gold["gimp"]), TOL["gimp"])
-    _check_close("sigma", ed.ed_get_sigma(z), cplx(gold["sigma"]),
-                 TOL["sigma"])
+    launched = read_counts()[kernel]
+    z = _z(gold.get("beta_grid", cfg.beta))
+    got = dict(e0=res.e0, evals=ed.ed_get_evals(), dens=ed.ed_get_dens(),
+               docc=ed.ed_get_docc(), energies=ed.ed_get_eimp(),
+               gimp=ed.ed_get_gimp(z), sigma=ed.ed_get_sigma(z))
+    print(f"[golden] norb=2 nbath=4 {cfg.ed_precision} on cuda: e0 "
+          f"{res.e0:.12f} (ref {gold['e0']:.12f}), {kernel} launches "
+          f"{launched}")
+    _check_all(got, gold, tol)
+    if tol_f64 is not None:
+        _check_all(got, gold["f64"], tol_f64, " vs f64")
     if launched <= 0:
-        fail("golden solve did not launch the fused kernel")
+        fail(f"golden {cfg.ed_precision} solve did not launch {kernel}")
     ed.ed_finalize_solver()
+
+
+def phase_golden(report: dict) -> None:
+    _golden(GOLDEN, TOL, "B1")
+    _golden(GOLDEN_F32, TOL_F32, "B2", tol_f64=TOL_F32_EXACT)
 
 
 def _solve_once(label: str, cfg, bath):
     import edipack_tpu_torch.main as ed
-    from edipack_tpu_torch.ops import fused_matvec as fm
     import torch
     torch.cuda.synchronize()
-    fm.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = ed.ed_solve(bath)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = fm.launches
+    counts = read_counts()
     z = _z(cfg.beta)
     g = ed.ed_get_gimp(z)
     s = ed.ed_get_sigma(z)
     dens, docc, en = ed.ed_get_dens(), ed.ed_get_docc(), ed.ed_get_eimp()
     print(f"[solve] {label}: wall {wall:.2f} s, phases "
           + ", ".join(f"{k} {v:.2f} s" for k, v in res.timings.items()))
+    stats = res.diag.lanczos_stats.values()
     print(f"[solve]   e0 {res.e0:.12f}  states {len(res.evals)}  matvecs "
-          f"{res.n_matvecs}  kernel launches {launched}")
+          f"{res.n_matvecs}  kernel launches {counts}")
+    print(f"[solve]   Lanczos sectors {len(stats)}: restarts "
+          f"{sum(r for r, _, _ in stats)}, at the restart cap "
+          f"{sum(r >= c for r, c, _ in stats)}, sweep matvecs "
+          f"{sum(n for _, _, n in stats)}")
     print(f"[solve]   dens {np.array2string(dens, precision=10)}  docc "
           f"{np.array2string(docc, precision=10)}")
     print(f"[solve]   energies {np.array2string(en, precision=10)}")
@@ -216,42 +466,127 @@ def _solve_once(label: str, cfg, bath):
             fail(f"{label}: {name} has shape {arr.shape} or is not finite")
     if not 0.0 < dens.sum() < 4.0:
         fail(f"{label}: unphysical density {dens}")
-    return res, launched, wall
+    return res, counts, wall
+
+
+def _config2(precision: str):
+    import edipack_tpu_torch.main as ed
+    from edipack_tpu_torch.config import default_config
+    cfg = default_config(norb=2, nbath=6, nspin=1, ed_verbose=3,
+                         ed_precision=precision, **KANAMORI)
+    bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+    ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
+    return cfg, bath
 
 
 def phase_solve(report: dict) -> None:
     import torch
     import edipack_tpu_torch.main as ed
-    from edipack_tpu_torch.config import default_config
     from edipack_tpu_torch.models.normal import build_normal_sector_op
+    from edipack_tpu_torch.ops import kron_tiles as kt
     from edipack_tpu_torch.ops.lanczos import eigsh_lowest
     from edipack_tpu_torch.ops.matvec import KronMatvec
-    cfg = default_config(norb=2, nbath=6, nspin=1, ed_verbose=3, **KANAMORI)
-    bath = ed.ed_init_solver(cfg=cfg, device="cuda")
-    ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
+    dev = torch.device(DEVICE)
+    cfg, bath = _config2("float64")
     torch.cuda.reset_peak_memory_stats()
-    res, launched, wall = _solve_once("config 2 cold", cfg, bath)
-    report["launches"] = launched
+    res, counts, wall = _solve_once("config 2 f64 cold", cfg, bath)
+    report["B1_launches"] = counts["B1"]
     report["cold"] = dict(wall_s=wall, matvecs=res.n_matvecs, **res.timings)
-    if launched <= 0:
-        fail("config 2 solve did not launch the fused kernel")
-    res2, launched2, wall2 = _solve_once("config 2 warm", cfg, bath)
-    report["warm"] = dict(wall_s=wall2, matvecs=res2.n_matvecs,
-                          launches=launched2, **res2.timings)
+    if counts["B1"] <= 0:
+        fail("config 2 f64 solve did not launch B1")
     print(f"[solve]   peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # ground-state sector re-solved through the dense-factor KronMatvec
     st = res.diag.state_list.states[0]
     sec = res.table.sector(st.sector)
     mv = KronMatvec(build_normal_sector_op(cfg, sec, res.hloc, res.um,
-                                           res.bath), torch.device("cuda"))
+                                           res.bath), dev)
     vals, _ = eigsh_lowest(mv, mv.dim, 1, tol=1e-14)
-    dev = abs(float(vals[0]) - res.e0)
+    dev_e0 = abs(float(vals[0]) - res.e0)
     print(f"[solve] ground-state sector {sec.qn} dim {sec.dim}: KronMatvec "
-          f"e0 {vals[0]:.12f}, solve e0 {res.e0:.12f}, |diff| {dev:.3e}")
-    if not dev <= 1e-10:
-        fail(f"ground-state e0 disagrees with KronMatvec ({dev:.3e})")
+          f"e0 {vals[0]:.12f}, solve e0 {res.e0:.12f}, |diff| {dev_e0:.3e}")
+    if not dev_e0 <= 1e-10:
+        fail(f"ground-state e0 disagrees with KronMatvec ({dev_e0:.3e})")
+    # the (7,7) sector's lowest level through the dense-tile operator (B4)
+    sec77 = res.table.by_qn(("n", (7,), (7,)))
+    e77 = float(res.diag.evals_by_sector[sec77.index][0])
+    tiles = kt.KronTileMatvec(build_normal_sector_op(
+        cfg, sec77, res.hloc, res.um, res.bath), dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats: dict = {}
+    vals, _ = eigsh_lowest(tiles, tiles.dim, 1, dtype=torch.float32, m=48,
+                           tol=1e-14, max_restarts=10, stats=stats)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rel77 = abs(float(vals[0]) - e77) / abs(e77)
+    print(f"[solve] (7,7) dim {sec77.dim} through B4 (f32 Lanczos): e "
+          f"{vals[0]:.9f} vs f64 solve {e77:.9f}, rel {rel77:.3e} (limit "
+          f"{E0_F32_RTOL}); {stats['n_matvecs']} matvecs, "
+          f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    report["B4_launches"] = counts["B4"]
+    if counts["B4"] <= 0 or not rel77 <= E0_F32_RTOL:
+        fail(f"B4 Lanczos: launches {counts['B4']}, rel {rel77:.3e}")
+    e0_64 = res.e0
     ed.ed_finalize_solver()
+    del res, tiles, mv
+    # config 2 in f32 through ed_solve (auto: B2 for dim >= 2^17)
+    cfg32, bath32 = _config2("float32")
+    res32, counts, wall = _solve_once("config 2 f32 cold", cfg32, bath32)
+    report["B2_launches"] = counts["B2"]
+    report["cold_f32"] = dict(wall_s=wall, matvecs=res32.n_matvecs,
+                              **res32.timings)
+    rel = abs(res32.e0 - e0_64) / abs(e0_64)
+    print(f"[solve]   f32 e0 {res32.e0:.9f} vs f64 {e0_64:.12f}: rel "
+          f"{rel:.3e} (limit {E0_F32_RTOL})")
+    if counts["B2"] <= 0:
+        fail("config 2 f32 solve did not launch B2")
+    if not rel <= E0_F32_RTOL:
+        fail(f"config 2 f32 e0 off by {rel:.3e} relative")
+    ed.ed_finalize_solver()
+
+
+def kernel_report(report: dict) -> list:
+    big = report["fused"][0]                 # config 2's (7,7) sector
+    kron = report["kron"][0]
+    pw = report["power"]
+    src = "edipack_tpu_torch/csrc/"
+    return [
+        dict(name="fused_normal_matvec_f64", route="cuda",
+             source=src + "fused_normal.cu",
+             replaces="edipack_tpu/ops/pallas_fused.py:237",
+             launches=report["B1_launches"],
+             max_abs_err=max(s["err64"] for s in report["fused"]),
+             ms=big["b1"], plain_ms=big["b1_plain"],
+             bound_ms=big["bound64"]["bound_ms"],
+             bound_by=big["bound64"]["bound_by"], library_ms=None),
+        dict(name="fused_normal_matvec_f32", route="cuda",
+             source=src + "fused_normal.cu",
+             replaces="edipack_tpu/ops/pallas_fused.py:134",
+             launches=report["B2_launches"],
+             max_abs_err=max(s["err32"] for s in report["fused"]),
+             ms=big["b2"], plain_ms=big["b2_plain"],
+             bound_ms=big["bound32"]["bound_ms"],
+             bound_by=big["bound32"]["bound_by"], library_ms=None),
+        dict(name="fused_normal_power_f32", route="cuda",
+             source=src + "fused_normal.cu",
+             replaces="edipack_tpu/ops/pallas_fused.py:248",
+             launches=pw["launches"], max_abs_err=pw["err"],
+             ms=pw["ms"], plain_ms=pw["plain_ms"],
+             bound_ms=pw["bound"]["bound_ms"],
+             bound_by=pw["bound"]["bound_by"], library_ms=None,
+             per="power step"),
+        dict(name="kron_tiles_matvec_f32", route="cuda",
+             source=src + "kron_tiles.cu",
+             replaces="edipack_tpu/ops/pallas_kron.py:22",
+             launches=report["B4_launches"],
+             max_abs_err=max(s["err"] for s in report["kron"]),
+             ms=kron["b4"], plain_ms=kron["b4_plain"],
+             bound_ms=kron["bound"]["bound_ms"],
+             bound_by=kron["bound"]["bound_by"],
+             library_ms=kron["library"]),
+    ]
 
 
 def main() -> int:
@@ -263,25 +598,21 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import edipack_tpu_torch  # noqa: F401  (fails outside the repository)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(card_line())          # name, power limit, as nvidia-smi gives them
     print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     report: dict = {}
+    t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernel", phase_kernel),
                      ("golden", phase_golden), ("solve", phase_solve)):
         t0 = time.perf_counter()
         fn(report)
         print(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s",
               flush=True)
-    big = report["shapes"][0]          # config 2's (7,7) sector
-    kern = dict(name="fused_normal_matvec_f64", route="cuda",
-                source="edipack_tpu_torch/csrc/fused_normal.cu",
-                replaces="edipack_tpu/ops/pallas_fused.py:237",
-                launches=report["launches"],
-                max_abs_err=max(s["max_abs_err"] for s in report["shapes"]),
-                ms=big["ms"], plain_ms=big["plain_ms"])
-    print(json.dumps({"kernels": [kern]}))
+    print(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": kernel_report(report)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -167,7 +167,9 @@ class EDConfig:
     logfile: int = 6
 
     # ---- engine additions (no reference counterpart)
-    ed_precision: str = "float64"   # only float64 is supported by this package
+    # float64 | float32: dtype of the Lanczos sectors' matvecs and vectors
+    # (device.working_dtype); dense buckets stay f64 at either precision
+    ed_precision: str = "float64"
     # accepted for input-file compatibility with edipack_tpu and inert here:
     # the card computes every matvec in native f64, so there is no
     # double-single split to select
@@ -242,6 +244,8 @@ class EDConfig:
             raise ValueError("ed_mixed_matvec must be auto|always|never")
         if self.ed_fused_matvec not in ("auto", "always", "never"):
             raise ValueError("ed_fused_matvec must be auto|always|never")
+        if self.ed_precision not in ("float64", "float32"):
+            raise ValueError("ed_precision must be float64|float32")
         if self.jz_basis:
             if self.ed_mode != "nonsu2":
                 raise ValueError("jz_basis requires ed_mode=nonsu2")

@@ -2,9 +2,10 @@
 
 Every tensor of the solve lives on one explicit ``torch.device`` chosen by
 the caller (``EDSolver(cfg, device=...)``); the default is ``"cuda"`` and
-there is no silent fallback to the CPU. Arithmetic is f64 throughout: the
+there is no silent fallback to the CPU. Arithmetic is f64 by default: the
 card has native FP64, so none of the double-single workarounds of the TPU
-package are needed.
+package are needed. ``ed_precision="float32"`` runs the Lanczos sectors in
+f32, as the TPU package does (:func:`working_dtype`).
 """
 from __future__ import annotations
 
@@ -15,6 +16,14 @@ from typing import Dict, Union
 import torch
 
 DTYPE = torch.float64
+PRECISIONS = {"float64": torch.float64, "float32": torch.float32}
+
+
+def working_dtype(cfg) -> torch.dtype:
+    """dtype of the Lanczos sectors' matvecs and vectors for
+    ``cfg.ed_precision`` (cf. edipack_tpu.solver.core._normal_builders).
+    Dense buckets and exact GF moments stay f64 at either precision."""
+    return PRECISIONS[cfg.ed_precision]
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels at first use.
 
-The sources under ``edipack_tpu_torch/csrc`` are compiled by ``nvcc`` into
-one shared library with a plain C interface (loaded with ``ctypes``). The
-library lands in ``build/edipack_tpu_torch/`` at the repository root and is
-named by a hash of the sources and flags, so an edited source rebuilds. A
+The sources under ``edipack_tpu_torch/csrc`` are compiled by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface (loaded with ``ctypes``). The library
+lands in ``build/edipack_tpu_torch/`` at the repository root and is named
+by a hash of the sources and flags, so an edited source rebuilds. A
 missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 from __future__ import annotations
@@ -18,10 +19,11 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "fused_normal.cu",)
+SOURCES = (_PKG / "csrc" / "fused_normal.cu", _PKG / "csrc" / "kron_tiles.cu")
 BUILD_DIR = _PKG.parent / "build" / "edipack_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""          # nvcc's output of the build done by this process
@@ -50,11 +52,32 @@ def library_path() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.fused_normal_matvec_f64
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    for name in ("fused_normal_matvec_f64", "fused_normal_matvec_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 12 + [i] * 4 + [p]
+        fn.restype = i
+    fn = lib.fused_normal_power_f32
+    fn.argtypes = [p] * 13 + [i] * 4 + [p] * 3 + [i, p]
+    fn.restype = i
+    fn = lib.kron_tiles_matvec_f32
+    fn.argtypes = [p] * 5 + [i, i, p]
     fn.restype = i
     lib.fused_normal_error_string.argtypes = [i]
     lib.fused_normal_error_string.restype = ctypes.c_char_p
+
+
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; raise with every log if one fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    for c, p in zip(cmds, procs):
+        if p.returncode != 0:
+            raise RuntimeError(f"edipack_tpu_torch: kernel build failed "
+                               f"({' '.join(c)}):\n{log}")
+    return log
 
 
 def load_library() -> ctypes.CDLL:
@@ -65,16 +88,19 @@ def load_library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                              for s, o in zip(SOURCES, objs)])
+        build_log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                *map(str, objs)]])
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"edipack_tpu_torch: kernel build failed "
-                               f"({' '.join(cmd)}):\n{build_log}")
         os.replace(tmp, out)
+        for o in objs:
+            o.unlink()
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     _lib = lib

@@ -1,22 +1,31 @@
-"""Fused f64 normal-sector matvec on the imp-MSB column-blocked layout.
+"""Fused normal-sector matvec on the imp-MSB column-blocked layout, in f64
+and f32, and the f32 chained power steps.
 
-Counterpart of edipack_tpu.ops.pallas_fused (``FusedMatvecDS`` wrapped by
-``MixedFusedKron``). The TPU kernel computes H·V as double-single f32
-planes; the card has native FP64, so here the product is one f64 kernel,
-``csrc/fused_normal.cu``, with the same operator metadata
-(ops.fused_normal.build_fused_normal).
+Counterpart of edipack_tpu.ops.pallas_fused. The TPU package has three
+kernels here; each has one CUDA counterpart in ``csrc/fused_normal.cu``,
+built from the same operator metadata (ops.fused_normal.build_fused_normal):
 
-* :func:`fused_matvec` — the kernel wrapper: launches the CUDA kernel for a
-  CUDA tensor (or raises), and runs :func:`fused_matvec_plain` only for a
-  tensor on the CPU. Each launch adds one to the module counter
-  ``launches``.
-* :func:`fused_matvec_plain` — the same function in plain PyTorch
-  (gathered source blocks and one matmul per column / row block, then the
-  rectangle shifts of the non-local terms).
+* B1, ``FusedMatvecDS`` wrapped by ``MixedFusedKron``: the TPU kernel
+  computes H·V as double-single f32 planes; the card has native FP64, so
+  here it is one f64 kernel;
+* B2, ``FusedMatvec`` wrapped by ``FusedKron``: the same product in f32;
+* B3, ``FusedPower``: ``niter`` chained steps w = H·v, v = w/‖w‖.
+
+* :func:`fused_matvec` — the matvec wrapper: for a CUDA tensor it launches
+  B1 (float64) or B2 (float32), or raises; it runs
+  :func:`fused_matvec_plain` only for a tensor on the CPU. Each launch adds
+  one to the module counter ``launches`` (B1) or ``launches_f32`` (B2).
+* :func:`fused_matvec_plain` — the same function in plain PyTorch, in the
+  operands' dtype (gathered source blocks and one matmul per column / row
+  block, then the rectangle shifts of the non-local terms).
 * :class:`FusedKron` — the solver-facing operator on flat internal vectors,
   with the original <-> internal layout conversion.
+* :class:`FusedPower` — B3; each call on the card adds its 2·niter kernel
+  launches to ``power_launches``.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -25,29 +34,45 @@ from ..device import DTYPE
 from . import _build
 from .fused_normal import BLK, DIAG_RANK, FusedNormalOp
 
-launches = 0     # kernel launches since the counter was last reset
+launches = 0          # B1 (f64) kernel launches since the last reset
+launches_f32 = 0      # B2 (f32) kernel launches since the last reset
+power_launches = 0    # B3 kernel launches (2 per step) since the last reset
+
+_ENTRY = {torch.float64: "fused_normal_matvec_f64",
+          torch.float32: "fused_normal_matvec_f32"}
 
 
 class FusedOperands:
-    """Device-resident operands of one sector's fused matvec."""
+    """Device-resident operands of one sector's fused matvec in ``dtype``:
+    the exact f64 tables for B1, or the f32 tables the TPU package's B2
+    reads (``fop.up_vals``/``dw_vals``, the diagonal factors cast to f32)."""
 
-    def __init__(self, fop: FusedNormalOp, device: torch.device):
+    def __init__(self, fop: FusedNormalOp, device: torch.device,
+                 dtype: torch.dtype = DTYPE):
+        if dtype not in _ENTRY:
+            raise TypeError(f"fused operands: unsupported dtype {dtype}")
+        self.dtype = dtype
         self.ddp, self.dup = fop.ddp, fop.dup
         self.nbu, self.nbd = fop.dup // BLK, fop.ddp // BLK
-        f64 = dict(dtype=DTYPE, device=device)
+        f64 = dtype == torch.float64
+        fl = dict(dtype=dtype, device=device)
         i32 = dict(dtype=torch.int32, device=device)
-        self.up_vals = torch.as_tensor(fop.up_vals64, **f64).contiguous()
-        self.dw_vals = torch.as_tensor(fop.dw_vals64, **f64).contiguous()
+
+        def put(x64, x32):
+            return torch.as_tensor(x64 if f64 else x32, **fl).contiguous()
+
+        self.up_vals = put(fop.up_vals64, fop.up_vals)
+        self.dw_vals = put(fop.dw_vals64, fop.dw_vals)
+        self.diag_a = put(fop.diag_a64, fop.diag_a)
+        self.diag_b = put(fop.diag_b64, fop.diag_b)
         self.up_src = torch.as_tensor(fop.up_src, **i32)
         self.dw_src = torch.as_tensor(fop.dw_src, **i32)
         self.up_ptr = torch.as_tensor(fop.up_ptr, **i32)
         self.dw_ptr = torch.as_tensor(fop.dw_ptr, **i32)
-        self.diag_a = torch.as_tensor(fop.diag_a64, **f64).contiguous()
-        self.diag_b = torch.as_tensor(fop.diag_b64, **f64).contiguous()
         runs = [(r.dd0, r.sd0, r.ld, r.du0, r.su0, r.lu) for r in fop.nl_runs]
         self.runs_i = torch.as_tensor(np.asarray(runs, np.int32).reshape(-1, 6),
                                       **i32)
-        self.runs_v = torch.as_tensor([r.val for r in fop.nl_runs], **f64)
+        self.runs_v = torch.as_tensor([r.val for r in fop.nl_runs], **fl)
         # host copies for the plain version's loops
         self.runs = list(fop.nl_runs)
         self.up_ptr_h = [int(x) for x in fop.up_ptr]
@@ -55,10 +80,23 @@ class FusedOperands:
         self.up_src_l = self.up_src.long()
         self.dw_src_l = self.dw_src.long()
 
+    def args(self):
+        """The C entry points' operand pointers, in their order."""
+        return (self.up_vals.data_ptr(), self.up_src.data_ptr(),
+                self.up_ptr.data_ptr(), self.dw_vals.data_ptr(),
+                self.dw_src.data_ptr(), self.dw_ptr.data_ptr(),
+                self.diag_a.data_ptr(), self.diag_b.data_ptr(),
+                self.runs_i.data_ptr(), self.runs_v.data_ptr(),
+                len(self.runs), self.ddp, self.nbu, self.nbd)
+
 
 def _check(v3: torch.Tensor, ops: FusedOperands) -> None:
-    if v3.dtype != DTYPE:
-        raise TypeError(f"fused_matvec: expected float64, got {v3.dtype}")
+    if v3.dtype not in _ENTRY:
+        raise TypeError(f"fused_matvec: expected float64 or float32, got "
+                        f"{v3.dtype}")
+    if v3.dtype != ops.dtype:
+        raise TypeError(f"fused_matvec: {v3.dtype} input, {ops.dtype} "
+                        f"operands")
     if tuple(v3.shape) != (ops.nbu * ops.ddp, BLK):
         raise ValueError(f"fused_matvec: expected shape "
                          f"{(ops.nbu * ops.ddp, BLK)}, got {tuple(v3.shape)}")
@@ -67,35 +105,38 @@ def _check(v3: torch.Tensor, ops: FusedOperands) -> None:
     if v3.device != ops.up_vals.device:
         raise ValueError(f"fused_matvec: input on {v3.device}, operands on "
                          f"{ops.up_vals.device}")
+    if v3.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"fused_matvec: unsupported device {v3.device}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def fused_matvec(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
-    """W3 = H·V3 on the column-blocked layout (nbu*ddp, 128), f64."""
-    global launches
+    """W3 = H·V3 on the column-blocked layout (nbu*ddp, 128), in v3's dtype
+    (float64: B1, float32: B2)."""
+    global launches, launches_f32
     _check(v3, ops)
     if v3.device.type == "cpu":
         return fused_matvec_plain(v3, ops)
-    if v3.device.type != "cuda":
-        raise RuntimeError(f"fused_matvec: unsupported device {v3.device}")
     lib = _build.load_library()
+    name = _ENTRY[v3.dtype]
     w3 = torch.empty_like(v3)
     with torch.cuda.device(v3.device):
-        stream = torch.cuda.current_stream(v3.device).cuda_stream
-        err = lib.fused_normal_matvec_f64(
-            v3.data_ptr(), w3.data_ptr(),
-            ops.up_vals.data_ptr(), ops.up_src.data_ptr(),
-            ops.up_ptr.data_ptr(), ops.dw_vals.data_ptr(),
-            ops.dw_src.data_ptr(), ops.dw_ptr.data_ptr(),
-            ops.diag_a.data_ptr(), ops.diag_b.data_ptr(),
-            ops.runs_i.data_ptr(), ops.runs_v.data_ptr(),
-            len(ops.runs), ops.ddp, ops.nbu, ops.nbd, stream)
-    _build.check(lib, err, "fused_normal_matvec_f64 launch")
-    launches += 1
+        err = getattr(lib, name)(v3.data_ptr(), w3.data_ptr(), *ops.args(),
+                                 _stream(v3))
+    _build.check(lib, err, f"{name} launch")
+    if v3.dtype == torch.float64:
+        launches += 1
+    else:
+        launches_f32 += 1
     return w3
 
 
 def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_matvec` (same function)."""
+    """Plain PyTorch version of :func:`fused_matvec` (same function, in the
+    operands' dtype)."""
     nbu, nbd, ddp = ops.nbu, ops.nbd, ops.ddp
     v = v3.view(nbu, ddp, BLK)
     # diagonal from its rank-8 factors: D[j, d, c] = a[d] . b[j*BLK + c]
@@ -129,22 +170,73 @@ def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     return w2.view(ddp, nbu, BLK).permute(1, 0, 2).reshape(nbu * ddp, BLK)
 
 
+def fused_power(v3: torch.Tensor, ops: FusedOperands, niter: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B3: ``niter`` chained steps from V3 (f32), normalization lazy.
+
+    Returns (w3, norms): w3 is the un-normalized H·v of the last step,
+    norms[k] = ‖H v_k‖ with v_0 = V3 and v_{k+1} = H v_k / ‖H v_k‖. For a
+    CUDA tensor: one host call, 2*niter kernel launches on the current
+    stream and no host synchronization."""
+    global power_launches
+    _check(v3, ops)
+    if v3.dtype != torch.float32:
+        raise TypeError(f"fused_power: expected float32, got {v3.dtype}")
+    if niter < 1:
+        raise ValueError(f"fused_power: niter must be >= 1, got {niter}")
+    if v3.device.type == "cpu":
+        return fused_power_plain(v3, ops, niter)
+    lib = _build.load_library()
+    bufs = (torch.empty_like(v3), torch.empty_like(v3))
+    f32 = dict(dtype=torch.float32, device=v3.device)
+    partials = torch.empty(ops.nbu * ops.nbd, **f32)
+    ssq = torch.ones(niter + 1, **f32)
+    norms = torch.empty(niter, **f32)
+    with torch.cuda.device(v3.device):
+        err = lib.fused_normal_power_f32(
+            v3.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), *ops.args(),
+            partials.data_ptr(), ssq.data_ptr(), norms.data_ptr(), niter,
+            _stream(v3))
+    _build.check(lib, err, "fused_normal_power_f32 launch")
+    power_launches += 2 * niter
+    return bufs[(niter - 1) % 2], norms
+
+
+def fused_power_plain(v3: torch.Tensor, ops: FusedOperands, niter: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_power` (the same loop)."""
+    ssq = torch.ones((), dtype=v3.dtype, device=v3.device)
+    norms = []
+    w = v3
+    for _ in range(niter):
+        w = fused_matvec_plain(w, ops) * torch.rsqrt(ssq)
+        ssq = (w * w).sum()
+        norms.append(torch.sqrt(ssq))
+    return w, torch.stack(norms)
+
+
 class FusedKron:
-    """f64 fused sector matvec on flat internal vectors (n_internal,).
+    """Fused sector matvec on flat internal vectors (n_internal,).
+
+    ``dtype`` float64 runs B1, float32 B2 (edipack_tpu's ``FusedKron``, in
+    full FP32). A vector of another dtype is cast to ``dtype`` for the
+    product and the result cast back, as edipack_tpu's
+    ``FusedKron.__call__`` does.
 
     Drop-in for ops.matvec.KronMatvec in the Lanczos solvers, except that
     the vector space is the padded imp-MSB-blocked internal layout: use
     to_internal_flat / from_internal_flat at the boundaries. Padding slots
     are structurally zero; v0_project zeroes them in start vectors."""
 
-    def __init__(self, fop: FusedNormalOp, device: torch.device):
+    def __init__(self, fop: FusedNormalOp, device: torch.device,
+                 dtype: torch.dtype = DTYPE):
         self.fop = fop
         self.device = device
         self.dim = fop.n_internal
-        self.dtype = DTYPE
+        self.dtype = dtype
         self.nnz = fop.nnz
         self.n_calls = 0
-        self.ops = FusedOperands(fop, device)
+        self.ops = FusedOperands(fop, device, dtype)
         self.dd, self.du = fop.dd, fop.du
         self.ddp, self.dup = fop.ddp, fop.dup
         self.nbu = fop.dup // BLK
@@ -153,17 +245,18 @@ class FusedKron:
         self._perm_up = torch.as_tensor(fop.perm_up, **idx)
         self._iperm_dw = torch.as_tensor(np.argsort(fop.perm_dw), **idx)
         self._iperm_up = torch.as_tensor(np.argsort(fop.perm_up), **idx)
-        mask = torch.zeros(self.nbu, self.ddp, BLK, dtype=DTYPE, device=device)
+        mask = torch.zeros(self.nbu, self.ddp, BLK, dtype=dtype, device=device)
         mask[:, :self.dd, :] = 1.0
-        col = (torch.arange(self.dup, device=device) < self.du).to(DTYPE)
+        col = (torch.arange(self.dup, device=device) < self.du).to(dtype)
         self._mask = (mask * col.view(self.nbu, 1, BLK)).reshape(-1)
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
-        return fused_matvec(v.reshape(-1, BLK), self.ops).reshape(-1)
+        w = fused_matvec(v.reshape(-1, BLK).to(self.dtype), self.ops)
+        return w.reshape(-1).to(v.dtype)
 
     def v0_project(self, v: torch.Tensor) -> torch.Tensor:
-        return v * self._mask
+        return v * self._mask.to(v.dtype)
 
     def to_internal_flat(self, v_orig: torch.Tensor) -> torch.Tensor:
         """Original (dd*du,) -> padded internal layout: two axis gathers, a
@@ -179,3 +272,17 @@ class FusedKron:
             .reshape(self.ddp, self.dup)[:self.dd, :self.du]
         x = x.index_select(0, self._iperm_dw).index_select(1, self._iperm_up)
         return x.reshape(-1)
+
+
+class FusedPower:
+    """``niter`` chained (matvec + normalize) steps, f32: edipack_tpu's
+    ``FusedPower``. ``__call__(v3) -> (w3, norms)`` on the column-blocked
+    layout; see :func:`fused_power`."""
+
+    def __init__(self, fop: FusedNormalOp, niter: int, device: torch.device):
+        self.fop = fop
+        self.niter = niter
+        self.ops = FusedOperands(fop, device, torch.float32)
+
+    def __call__(self, v3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return fused_power(v3, self.ops, self.niter)

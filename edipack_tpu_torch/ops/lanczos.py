@@ -1,6 +1,7 @@
-"""Krylov eigensolvers in f64 on the solve's device.
+"""Krylov eigensolvers on the solve's device, in the working dtype.
 
-Counterpart of the f64 part of edipack_tpu.ops.lanczos:
+Counterpart of the f64/f32 part of edipack_tpu.ops.lanczos (the sweeps run
+in the start vector's dtype; the restart bookkeeping on the host):
 
 * :func:`lanczos_sweep` — m-step Lanczos factorization with full (two-pass)
   reorthogonalization against the stored basis; driven by the host-side
@@ -99,6 +100,7 @@ def _tridiag_eigh(a: np.ndarray, b: np.ndarray, k: int):
 
 
 def eigsh_lowest(matvec: Callable, dim: int, nev: int,
+                 dtype: torch.dtype = DTYPE,
                  m: Optional[int] = None, tol: float = 1e-12,
                  max_restarts: int = 60,
                  v0: Optional[np.ndarray | torch.Tensor] = None,
@@ -106,34 +108,35 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
                  ) -> Tuple[np.ndarray, torch.Tensor]:
     """``nev`` lowest eigenpairs by restarted deflated Lanczos.
 
-    Host-driven outer loop, device sweeps on ``matvec.device``. Returns
-    (evals[nev] numpy, evecs[nev, dim] on the device) sorted ascending.
-    ``v0`` is the start vector (else one is drawn from a CPU generator
-    seeded with 17, so every device starts from the same vector);
-    operators with ``v0_project`` (padded fused layouts) get their padding
-    zeroed in every start vector. ``stats`` is filled with ``n_restarts``
-    and ``n_matvecs``."""
+    Host-driven outer loop, device sweeps on ``matvec.device`` in
+    ``dtype``. Returns (evals[nev] numpy, evecs[nev, dim] on the device in
+    ``dtype``) sorted ascending. ``v0`` is the start vector (else one is
+    drawn in f64 from a CPU generator seeded with 17 and cast, so every
+    device and dtype starts from the same vector); operators with
+    ``v0_project`` (padded fused layouts) get their padding zeroed in every
+    start vector. ``stats`` is filled with ``n_restarts`` and
+    ``n_matvecs``."""
     device = matvec.device
     nev = min(nev, dim)
     if dim <= 128:
         # tiny spaces: materialize H by matvec columns and eigh directly
-        eye = torch.eye(dim, dtype=DTYPE, device=device)
+        eye = torch.eye(dim, dtype=dtype, device=device)
         h = torch.stack([matvec(eye[i]) for i in range(dim)], dim=1)
         vals, vecs = np.linalg.eigh(h.cpu().numpy())
         return vals[:nev], torch.as_tensor(np.ascontiguousarray(
-            vecs[:, :nev].T), dtype=DTYPE, device=device)
+            vecs[:, :nev].T), dtype=dtype, device=device)
     if m is None:
         m = min(dim, max(4 * nev + 24, 48))
     m = min(m, dim)
     generator = torch.Generator().manual_seed(START_SEED)
 
     def random_start():
-        v = torch.randn(dim, generator=generator, dtype=DTYPE)
-        return v.to(device)
+        v = torch.randn(dim, generator=generator, dtype=torch.float64)
+        return v.to(device=device, dtype=dtype)
 
     project = getattr(matvec, "v0_project", None)
     v0 = random_start() if v0 is None \
-        else torch.as_tensor(v0, dtype=DTYPE, device=device)
+        else torch.as_tensor(v0, dtype=dtype, device=device)
     if project is not None:
         v0 = project(v0)
     if stats is None:
@@ -163,7 +166,7 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
         n_take = min(want, k_eff)
         resids = np.abs(beta_last * tvecs[-1, :n_take])
         coef = torch.as_tensor(np.ascontiguousarray(tvecs[:, :n_take].T),
-                               dtype=DTYPE, device=device)
+                               dtype=dtype, device=device)
         ritz = coef @ V[:k_eff]                          # (n_take, dim)
         V = None
         scale = max(1.0, np.abs(tvals).max())

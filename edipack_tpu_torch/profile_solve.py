@@ -1,13 +1,14 @@
 """Device-time profile of one warm config 2 solve on a CUDA card.
 
-    python3 -m edipack_tpu_torch.profile_solve
+    python3 -m edipack_tpu_torch.profile_solve [float64|float32]
 
 Config 2 is the two-orbital Kanamori model (norb=2, nbath=6, uloc=[2,2],
-ust=1.2, jh=0.2, jx=0.15, jp=0.15, zero Hloc, default bath). The script
-runs one cold ``ed_solve`` without the profiler (it builds the kernel and
-gives the unprofiled wall time), then one warm ``ed_solve`` under
-``torch.profiler`` with CUDA activity only. It prints the device time by
-kernel, grouped as the fused kernel B1, cuBLAS gemm/gemv (the full
+ust=1.2, jh=0.2, jx=0.15, jp=0.15, zero Hloc, default bath), at the
+``ed_precision`` given (float64 by default). The script runs one cold
+``ed_solve`` without the profiler (it builds the kernels and gives the
+unprofiled wall time), then one warm ``ed_solve`` under ``torch.profiler``
+with CUDA activity only. It prints the device time by kernel, grouped as
+the fused kernel (B1 at f64, B2 at f32), cuBLAS gemm/gemv (the full
 reorthogonalization and Ritz products), host-to-device copies and the
 rest, and the device busy and idle shares of the profiled solve. Busy and
 idle both come from the one profiled window; the solve runs on one CUDA
@@ -15,6 +16,7 @@ stream, so device times add without overlap.
 """
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -32,7 +34,7 @@ TOP = 20
 
 def _group(name: str) -> str:
     if "fused_normal_kernel" in name:
-        return "B1 fused_normal_kernel"
+        return "fused_normal_kernel (B1/B2)"
     low = name.lower()
     if "gemm" in low or "gemv" in low or "splitk" in low:
         return "cuBLAS gemm/gemv"
@@ -43,11 +45,11 @@ def _group(name: str) -> str:
 
 def _timed_solve(dev: torch.device, bath):
     synchronize(dev)
-    fm.launches = 0
+    fm.launches = fm.launches_f32 = 0
     t0 = time.perf_counter()
     res = ed.ed_solve(bath)
     synchronize(dev)
-    return res, time.perf_counter() - t0, fm.launches
+    return res, time.perf_counter() - t0, fm.launches + fm.launches_f32
 
 
 def profile_solve(cfg, device="cuda") -> dict:
@@ -73,7 +75,7 @@ def profile_solve(cfg, device="cuda") -> dict:
     busy = sum(groups.values())
     print(f"[profile] cold solve {cold_s:.3f} s unprofiled; warm solve "
           f"{prof_s:.3f} s profiled; e0 {res.e0:.12f}, matvecs "
-          f"{res.n_matvecs}, B1 launches {launched}")
+          f"{res.n_matvecs}, B1/B2 launches {launched}")
     print(f"[profile] device busy {busy:.3f} s of the profiled "
           f"{prof_s:.3f} s: busy share {busy / prof_s:.4f}, idle share "
           f"{1 - busy / prof_s:.4f}")
@@ -92,7 +94,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve: needs one CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    profile_solve(default_config(**CONFIG2), "cuda")
+    precision = sys.argv[1] if len(sys.argv) > 1 else "float64"
+    profile_solve(default_config(**CONFIG2, ed_precision=precision), "cuda")
     return 0
 
 

@@ -3,7 +3,8 @@ ED_MAIN.f90:164-228): sector operators -> diagonalization -> Green's
 functions -> observables, with all products retained on the result object
 for the `ed_*` getters; counterpart of edipack_tpu.solver.core.
 
-Routing of a sector's matvec (``ed_fused_matvec``):
+Routing of a sector's matvec (``ed_fused_matvec``), in the working dtype
+(``ed_precision``: the f64 kernel B1 or the f32 kernel B2):
   * ``auto``   — the fused CUDA kernel (ops.fused_matvec) for sectors of
     dim >= 2^17 without phonons on a CUDA device, else KronMatvec;
   * ``always`` — the fused operator on any device (its plain PyTorch
@@ -24,7 +25,7 @@ from ..bath.dmft_bath import DmftBath
 from ..bath.functions import (delta_bath, g0and_bath, invg0_bath,
                               matsubara_grid, real_grid)
 from ..config import EDConfig
-from ..device import DTYPE, PhaseTimer
+from ..device import DTYPE, PhaseTimer, working_dtype
 from ..models.normal import NormalSectorOp, build_normal_sector_op
 from ..ops.fused_matvec import FusedKron
 from ..ops.fused_normal import build_fused_normal
@@ -65,9 +66,6 @@ def check_supported(cfg: EDConfig) -> None:
     if cfg.ed_sectors:
         raise not_implemented("ed_sectors (sector restart files)",
                               "DMFT loop and fit")
-    if cfg.ed_precision != "float64":
-        raise not_implemented(f"ed_precision={cfg.ed_precision}",
-                              "queue B kernel 2")
 
 
 @dataclass
@@ -156,6 +154,7 @@ def _normal_builders(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                      um: Umatrix, bath: DmftBath, device: torch.device):
     """Operator / matvec builders of the normal-mode solve (cached per
     sector)."""
+    dtype = working_dtype(cfg)
     op_cache: Dict[int, NormalSectorOp] = {}
     mv_cache: Dict[int, object] = {}
     dense_cache: Dict[int, Tuple] = {}
@@ -174,13 +173,13 @@ def _normal_builders(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                                or sec.dim < FUSED_MIN_DIM):
             return None
         fop = build_fused_normal(get_op(sec), cfg.norb)
-        return None if fop is None else FusedKron(fop, device)
+        return None if fop is None else FusedKron(fop, device, dtype=dtype)
 
     def matvec_builder(sec: Sector):
         if sec.index not in mv_cache:
             mv = _try_fused(sec)
             if mv is None:
-                mv = KronMatvec(get_op(sec), device)
+                mv = KronMatvec(get_op(sec), device, dtype=dtype)
             if cfg.ed_verbose >= 4:
                 print(f"[edipack_tpu_torch:DEBUG] sector {sec.index} "
                       f"dim={sec.dim} (dw={sec.dim_dw}, up={sec.dim_up}, "

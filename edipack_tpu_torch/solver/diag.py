@@ -7,28 +7,30 @@ solver choice :119-252, post-diag trimming and adaptive neigen feedback
 * sectors with dim <= lanc_dim_threshold are padded into power-of-two
   buckets and diagonalized with one batched ``torch.linalg.eigh`` per
   bucket;
-* larger sectors run restarted deflated Lanczos, one sector at a time.
+* larger sectors run restarted deflated Lanczos, one sector at a time, in
+  the operator's dtype (``mv.dtype``: f32 for ``ed_precision="float32"``).
 
-Retained eigenvectors stay on the solve's device.
+Retained eigenvectors stay on the solve's device, in the dtype that gave
+them (dense buckets f64, as in edipack_tpu).
 """
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import EDConfig
-from ..device import DTYPE
 from ..ops.lanczos import batched_eigh, eigsh_lowest
 from ..sectors import Sector, SectorTable
 from .eigenspace import EigenState, StateList
 
-# ed_sanitize: <u,Hv> vs <Hu,v> relative defect allowed for an f64 operator
-HERMITICITY_LIMIT = 1e-10
+# ed_sanitize: <u,Hv> vs <Hu,v> relative defect allowed for an operator of
+# each dtype (f32: edipack_tpu's limit, set by the f32 matvec noise)
+HERMITICITY_LIMIT = {torch.float64: 1e-10, torch.float32: 5e-5}
 
 
 @dataclass
@@ -42,6 +44,9 @@ class DiagResult:
     # ED_DIAG_NORMAL.f90:489-517)
     lanc_nstates_total: int = 0
     sector_histogram: Optional[np.ndarray] = None
+    # Lanczos sector -> (restarts, restart cap, sweep matvecs)
+    lanczos_stats: Dict[int, Tuple[int, int, int]] = field(
+        default_factory=dict)
 
 
 def _pad_pow2_bucket(dim: int) -> int:
@@ -65,7 +70,7 @@ def _sanitize_mv(i: int, mv) -> None:
     proj = getattr(mv, "v0_project", None)
 
     def rand_vec():
-        v = torch.as_tensor(rng.normal(size=mv.dim), dtype=DTYPE,
+        v = torch.as_tensor(rng.normal(size=mv.dim), dtype=mv.dtype,
                             device=mv.device)
         return proj(v) if proj is not None else v
 
@@ -74,11 +79,11 @@ def _sanitize_mv(i: int, mv) -> None:
     scale = float(torch.linalg.norm(u) * torch.linalg.norm(hv)
                   + torch.linalg.norm(hu) * torch.linalg.norm(v)) + 1e-30
     defect = abs(float(torch.dot(u, hv) - torch.dot(hu, v))) / scale
-    if not np.isfinite(defect) or defect > HERMITICITY_LIMIT:
+    limit = HERMITICITY_LIMIT[mv.dtype]
+    if not np.isfinite(defect) or defect > limit:
         raise AssertionError(
             f"[ed_sanitize] sector {i}: matvec Hermiticity defect "
-            f"{defect:.3e} (limit {HERMITICITY_LIMIT}) — operator term bug "
-            f"or NaN")
+            f"{defect:.3e} (limit {limit}) — operator term bug or NaN")
 
 
 def _sanitize_spectrum(i: int, vals: np.ndarray) -> None:
@@ -130,8 +135,10 @@ def _dense_buckets(cfg: EDConfig, table: SectorTable, items: List[int],
 
 def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
                           matvec_builder, nev_req: int, sl: StateList,
-                          evals_by_sector: Dict[int, np.ndarray]) -> None:
-    """Solve one Lanczos-sized sector into ``sl`` / ``evals_by_sector``."""
+                          evals_by_sector: Dict[int, np.ndarray]
+                          ) -> Tuple[int, int, int]:
+    """Solve one Lanczos-sized sector into ``sl`` / ``evals_by_sector``;
+    returns (restarts, restart cap, sweep matvecs)."""
     mv = matvec_builder(table.sector(i))
     if sanitize_enabled(cfg):
         _sanitize_mv(i, mv)
@@ -142,9 +149,11 @@ def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
         # plain-Lanczos semantics (reference sp_lanc_eigh, T=0): one long
         # sweep sized by lanc_niter instead of restarted NCV blocks
         m = min(mv.dim, max(m, min(cfg.lanc_niter, 512)))
-    vals, vecs = eigsh_lowest(mv, mv.dim, nev, m=m,
+    cap = max(4, cfg.lanc_niter // m)
+    stats: dict = {}
+    vals, vecs = eigsh_lowest(mv, mv.dim, nev, dtype=mv.dtype, m=m,
                               tol=max(cfg.lanc_tolerance, 1e-14),
-                              max_restarts=max(4, cfg.lanc_niter // m))
+                              max_restarts=cap, stats=stats)
     if sanitize_enabled(cfg):
         _sanitize_spectrum(i, vals)
     evals_by_sector[i] = vals
@@ -152,11 +161,13 @@ def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
     for j in range(len(vals)):
         vec = conv(vecs[j]) if conv is not None else vecs[j]
         sl.add(EigenState(float(vals[j]), i, vec))
+    return stats["n_restarts"], cap, stats["n_matvecs"]
 
 
 def _finish(cfg: EDConfig, table: SectorTable, sl: StateList,
             evals_by_sector: Dict[int, np.ndarray], neigen: np.ndarray,
-            twin_mask: np.ndarray, nsec: int) -> DiagResult:
+            twin_mask: np.ndarray, nsec: int,
+            lanczos_stats: Dict[int, Tuple[int, int, int]]) -> DiagResult:
     if len(sl) == 0:
         raise RuntimeError("no eigenstates found (all sectors empty?)")
 
@@ -191,7 +202,7 @@ def _finish(cfg: EDConfig, table: SectorTable, sl: StateList,
     return DiagResult(trimmed, evals_by_sector, new_neigen,
                       trimmed.partition_function(), trimmed.e0,
                       lanc_nstates_total=cfg.lanc_nstates_total,
-                      sector_histogram=counts)
+                      sector_histogram=counts, lanczos_stats=lanczos_stats)
 
 
 def diagonalize(cfg: EDConfig, table: SectorTable,
@@ -224,14 +235,16 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
                    evals_by_sector, device)
 
     sector_times: List[Tuple] = []
+    lanczos_stats: Dict[int, Tuple[int, int, int]] = {}
     for i in lanc_items:
         t0 = time.perf_counter()
-        _lanczos_solve_sector(cfg, table, i, matvec_builder, neigen[i], sl,
-                              evals_by_sector)
+        lanczos_stats[i] = _lanczos_solve_sector(
+            cfg, table, i, matvec_builder, neigen[i], sl, evals_by_sector)
         sector_times.append((i, table.get_dim(i), len(evals_by_sector[i]),
                              time.perf_counter() - t0))
     if cfg.ed_verbose >= 3 and sector_times:
         print("[edipack_tpu_torch] per-sector Lanczos timings:")
         for i, d, nv, dt in sorted(sector_times, key=lambda t: -t[3])[:20]:
             print(f"  sector {i:4d} dim {d:>10d} nev {nv}  {dt:8.3f}s")
-    return _finish(cfg, table, sl, evals_by_sector, neigen, twin_mask, nsec)
+    return _finish(cfg, table, sl, evals_by_sector, neigen, twin_mask, nsec,
+                   lanczos_stats)

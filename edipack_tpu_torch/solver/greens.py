@@ -8,7 +8,10 @@ get_impG :496-607, get_Sigma :698-739) and the GFmatrix store
 For every retained eigenstate and excitation operator O: |φ> = O|ψ> on the
 device, then the exact dense eigenbasis of a small target sector or a
 Lanczos tridiagonalization of a large one gives Källén-Lehmann
-weights/poles.
+weights/poles. |φ> keeps its state's dtype (f32 for a Lanczos state of an
+``ed_precision="float32"`` solve, f64 for a dense-bucket state); each chain
+runs in that dtype through the target sector's operator, which promotes or
+casts as its edipack_tpu counterpart does.
 """
 from __future__ import annotations
 
@@ -73,7 +76,8 @@ def _moments_from_phi(matvec, phi: torch.Tensor, m: int, dense_eig=None):
     the device and a host eigh of the small tridiagonal matrix."""
     if dense_eig is not None:
         evals, evecs = dense_eig
-        w = ((evecs.T @ phi) ** 2).cpu().numpy()
+        # f64 eigenbasis; an f32 excitation is promoted, as JAX promotes
+        w = ((evecs.T @ phi.to(evecs.dtype)) ** 2).cpu().numpy()
         keep = w > 1e-16 * max(w.max(), 1e-300)
         return w[keep], np.asarray(evals)[keep]
     dim = phi.shape[0]

@@ -10,6 +10,7 @@ import sys
 sys.path.insert(0, {root!r})
 import edipack_tpu_torch, edipack_tpu_torch.main, edipack_tpu_torch.convert
 import edipack_tpu_torch.ops.fused_matvec, edipack_tpu_torch.ops._build
+import edipack_tpu_torch.ops.kron_tiles
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "edipack_tpu"))
 print(",".join(bad))
