@@ -8,13 +8,17 @@ non-zero on any fault):
   build   build the CUDA kernels from csrc/ (one nvcc per source, started
           together) and print nvcc's register report of each kernel
   kernel  every kernel against its plain PyTorch version, with CUDA-event
-          times of both and of the PyTorch yardstick:
-          B1 (f64 fused matvec) and B2 (f32) at config 2's (7,7) sector and
-          the nbath=4 (5,4) sector, B2 also against B1; B3 (chained f32
-          power steps) at (7,7), niter=8 against the plain loop, then the
-          power-step entry at niter=100, timed per step; B4 (dense-tile
-          Kron) at (7,7) and the nbath=2 (3,2) sector, also against f32
-          KronMatvec
+          times of both and of the PyTorch yardsticks (cuSPARSE CSR factors
+          for all four, dense GEMMs for B4 too), each timed twice: with the
+          50 MB L2 flushed before every launch (a 128 MB scratch write; the
+          report's times) and back to back:
+          B1 (f64 sparse row-gather fused matvec) and B2 (f32 dense-tile) at
+          config 2's (7,7) sector and the nbath=4 (5,4) sector, B2 also
+          against B1; B3 (chained f32 power steps) at (7,7), niter=8
+          against the plain loop, then the power-step entry at niter=100,
+          timed per step; B4 (f32 sparse row-gather Kron) at (7,7) and the
+          nbath=2 (3,2) sector, against its plain version, the dense
+          formula and f32 KronMatvec
   golden  ed_solve at norb=2, nbath=4 through the fused kernels, f64 (B1)
           and f32 (B2, twin sectors on), vs the edipack_tpu reference
           numbers in tests/data/ (the f32 solve also vs the f64 numbers of
@@ -23,18 +27,20 @@ non-zero on any fault):
           ed_set_hloc -> ed_solve on the card, cold, in f64 (B1) and in f32
           (B2); the f64 ground-state sector's e0 re-derived through
           KronMatvec; the (7,7) sector's lowest level through Lanczos on the
-          dense-tile operator (B4) against the f64 solve's
+          row-gather Kron operator (B4) against the f64 solve's
 
 Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
-power-step entry for B3, the dense-tile Lanczos for B4) runs with every
+power-step entry for B3, the row-gather Lanczos for B4) runs with every
 launch counter set to 0 just before it and read just after. The line before
 the last is the kernel report (JSON), printed only once every phase has
-run: ``launches`` from those paths, ``max_abs_err``, ``ms``, ``plain_ms``
-and ``library_ms`` from the kernel phase at config 2's (7,7) sector (B3:
-per power step), ``bound_ms`` computed from those inputs: the function's
-work on this data (two operations per nonzero of the sector's H, not the
-dense 128x128 block products the kernels run) against its bytes. B3's
-``launches`` counts kernel launches, two per power step. The last line is
+run: ``launches`` from those paths, ``max_abs_err``, ``ms`` (L2 flushed),
+``ms_back_to_back``, ``plain_ms`` and ``library_ms`` (the faster of the
+yardsticks, named by ``library_call``) from the kernel phase at config 2's
+(7,7) sector (B3: per power step), ``bound_ms`` computed from those inputs:
+the function's work on this data (two operations per nonzero of the
+sector's H) against its bytes (B1, B4: V, the output and the ELL tables
+they read; B2, B3: the 128x128 factor blocks they read). B3's ``launches``
+counts kernel launches, two per power step. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repository,
 the script fails before printing any result.
 """
@@ -105,14 +111,31 @@ def read_counts() -> dict:
                 B4=kt.launches)
 
 
-def cuda_ms(fn, reps: int = 25, warm: int = 3) -> float:
-    """Median over ``reps`` launches of one call's time (CUDA events)."""
+_SCRATCH = []
+
+
+def flush_l2() -> None:
+    """Evict the 50 MB L2: write a 128 MB scratch tensor."""
+    import torch
+    if not _SCRATCH:
+        _SCRATCH.append(torch.empty(32 * 2**20, dtype=torch.float32,
+                                    device=DEVICE))
+    _SCRATCH[0].fill_(1.0)
+
+
+def cuda_ms(fn, reps: int = 25, warm: int = 3, flush: bool = False
+            ) -> float:
+    """Median over ``reps`` launches of one call's time (CUDA events);
+    with ``flush`` the L2 is flushed before each launch, outside the
+    events."""
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush:
+            flush_l2()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -123,51 +146,83 @@ def cuda_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float, kind: str, dense_flops: float
-          ) -> dict:
+def timed(times: dict, name: str, fn, reps: int = 25) -> None:
+    """times[name]: the L2 flushed before each launch; times[name +
+    "_b2b"]: back to back."""
+    times[name] = cuda_ms(fn, reps=reps, flush=True)
+    times[name + "_b2b"] = cuda_ms(fn, reps=reps)
+
+
+def bound(flops: float, nbytes: float, kind: str) -> dict:
     """The least time of the work on the card: the larger of its
-    operations over the peak rate and its bytes over the memory rate.
-    ``dense_flops``, the operations the kernel's dense tiles run, is kept
-    for the report."""
+    operations over the peak rate and its bytes over the memory rate."""
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_mem),
                 bound_by="operations" if t_ops >= t_mem else "bytes",
-                gflop=flops * 1e-9, mbytes=nbytes * 1e-6,
-                dense_gflop=dense_flops * 1e-9)
+                gflop=flops * 1e-9, mbytes=nbytes * 1e-6)
 
 
-def fused_bound(fop, kind: str, extra_flops: float = 0.0) -> dict:
+def fused_bound(fop, kind: str, tables: str, extra_flops: float = 0.0
+                ) -> dict:
     """One fused matvec of this sector as the function it computes: two
     operations per nonzero of H (``fop.nnz``: the diagonal, both hop
     factors and the Jx/Jp terms) and the diagonal's rank-8 products; V3
-    read once, W3 written once, the factor blocks and tables read once."""
+    read once, W3 written once, the diagonal factors, the runs and the
+    kernel's factor tables read once: ``tables="ell"`` the ELL tables B1
+    reads, ``"blocks"`` the 128x128 factor blocks B2 and B3 read (and B1
+    read before its redesign)."""
     from edipack_tpu_torch.ops.fused_normal import BLK, DIAG_RANK
     es = 8 if kind == "f64" else 4
-    nblk = len(fop.up_src) + len(fop.dw_src)
     n = fop.ddp * fop.dup
     flops = 2 * fop.nnz + 2 * DIAG_RANK * fop.dd * fop.du + extra_flops
-    nbytes = (es * (2 * n + nblk * BLK * BLK + (fop.ddp + fop.dup) * DIAG_RANK)
-              + 4 * (2 * nblk + fop.ddp // BLK + fop.dup // BLK + 2))
-    dense = (2 * BLK * BLK * (fop.ddp * len(fop.up_src)
-                              + fop.dup * len(fop.dw_src))
-             + 2 * (DIAG_RANK + 1) * n
-             + 2 * sum(r.ld * r.lu for r in fop.nl_runs) + extra_flops)
-    return bound(flops, nbytes, kind, dense)
+    nbytes = es * (2 * n + (fop.ddp + fop.dup) * DIAG_RANK)
+    if tables == "ell":
+        nbytes += ((es + 4) * (fop.up_ell_idx.size + fop.dw_ell_idx.size)
+                   + (4 * 6 + es) * len(fop.nl_runs))
+    else:
+        nblk = len(fop.up_src) + len(fop.dw_src)
+        nbytes += (es * nblk * BLK * BLK
+                   + 4 * (2 * nblk + fop.ddp // BLK + fop.dup // BLK + 2))
+    return bound(flops, nbytes, kind)
 
 
 def kron_bound(mv) -> dict:
-    """One dense-tile Kron matvec as the function it computes: two
-    operations per nonzero of Hupᵀ for each row of V and per nonzero of Hdw
-    for each column, and D⊙V with the two sums; V, D, Hupᵀ and Hdw read
-    once, the output written once."""
+    """One Kron matvec as the function it computes: two operations per
+    nonzero of Hup for each row of V and per nonzero of Hdw for each
+    column, and D⊙V with the two sums; V and D read once, the output
+    written once, the ELL tables read once."""
     import torch
-    n = mv.ddp * mv.dup
-    flops = (2 * (int(torch.count_nonzero(mv.hup_t)) * mv.ddp
-                  + int(torch.count_nonzero(mv.hdw)) * mv.dup) + 3 * n)
-    nbytes = 4 * (3 * n + mv.ddp * mv.ddp + mv.dup * mv.dup)
-    return bound(flops, nbytes, "f32",
-                 2 * n * (mv.ddp + mv.dup) + 3 * n)
+    n = mv.dd * mv.du
+    flops = (2 * (int(torch.count_nonzero(mv.up_val)) * mv.dd
+                  + int(torch.count_nonzero(mv.dw_val)) * mv.du) + 3 * n)
+    nbytes = 4 * 3 * n + 8 * (mv.up_idx.numel() + mv.dw_idx.numel())
+    return bound(flops, nbytes, "f32")
+
+
+def kron_bound_dense(mv) -> dict:
+    """The same function's bound as counted for the earlier dense-tile
+    kernel: V, D and the output on the 128-padded layout, the dense
+    factors Hupᵀ and Hdw read once."""
+    ddp, dup = -(-mv.dd // 128) * 128, -(-mv.du // 128) * 128
+    b = kron_bound(mv)
+    return bound(b["gflop"] * 1e9,
+                 4 * (3 * ddp * dup + ddp * ddp + dup * dup), "f32")
+
+
+def csr_yardstick(op, dtype):
+    """One set of PyTorch calls computing D⊙V + Hdw·V + V·Hupᵀ on the 2-D
+    (dd, du) layout in the original basis order, with the hop factors as
+    cuSPARSE CSR tensors (the Jx/Jp terms left out). Returns (fn, V)."""
+    import torch
+    put = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
+                                    device=DEVICE)
+    hup, hdw = put(op.hup).to_sparse_csr(), put(op.hdw).to_sparse_csr()
+    dd, du = op.hdw.shape[0], op.hup.shape[0]
+    d = put(np.asarray(op.d).reshape(dd, du))
+    v = put(np.random.default_rng(13).standard_normal((dd, du)))
+    return (lambda x: d * x + torch.sparse.mm(hdw, x)
+            + torch.sparse.mm(hup, x.T).T), v
 
 
 def sector_op(norb: int, nbath: int, nup: int, ndw: int, model=None,
@@ -221,7 +276,8 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
     v64 = mv64.to_internal_flat(v_orig).view(-1, 128)    # padding zeroed
     v32 = v64.float()
     print(f"[kernel] {label}: dim {fop.dd}x{fop.du} (padded "
-          f"{fop.ddp}x{fop.dup}), nnz {fop.nnz:.4e}, up blocks "
+          f"{fop.ddp}x{fop.dup}), nnz {fop.nnz:.4e}, ELL widths up "
+          f"{fop.up_ell_idx.shape[0]} dw {fop.dw_ell_idx.shape[0]}, up blocks "
           f"{len(fop.up_src)}, dw blocks {len(fop.dw_src)}, runs "
           f"{len(fop.nl_runs)}")
     # B1 against its plain version and the dense-factor operator
@@ -242,26 +298,37 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
     rel32_b1 = _rel(out32.double(), out64)
     kron32 = KronMatvec(op, dev, dtype=torch.float32)
     v_orig32 = v_orig.float()
-    times = dict(
-        b1=cuda_ms(lambda: fm.fused_matvec(v64, mv64.ops)),
-        b1_plain=cuda_ms(lambda: fm.fused_matvec_plain(v64, mv64.ops)),
-        kron64=cuda_ms(lambda: kron64(v_orig)),
-        b2=cuda_ms(lambda: fm.fused_matvec(v32, mv32.ops)),
-        b2_plain=cuda_ms(lambda: fm.fused_matvec_plain(v32, mv32.ops)),
-        kron32=cuda_ms(lambda: kron32(v_orig32)))
-    b1b, b2b = fused_bound(fop, "f64"), fused_bound(fop, "f32")
-    print(f"[kernel]   B1 vs plain: max_abs_err {err64:.3e}, rel {rel64:.3e} "
-          f"(limit {KERNEL_RTOL}); vs KronMatvec rel {rel_k:.3e}")
+    lib64, x64 = csr_yardstick(op, torch.float64)
+    lib32, x32 = csr_yardstick(op, torch.float32)
+    times: dict = {}
+    timed(times, "b1", lambda: fm.fused_matvec(v64, mv64.ops))
+    timed(times, "b1_plain", lambda: fm.fused_matvec_plain(v64, mv64.ops))
+    timed(times, "b1_csr", lambda: lib64(x64))
+    timed(times, "kron64", lambda: kron64(v_orig))
+    timed(times, "b2", lambda: fm.fused_matvec(v32, mv32.ops))
+    timed(times, "b2_plain", lambda: fm.fused_matvec_plain(v32, mv32.ops))
+    timed(times, "b2_csr", lambda: lib32(x32))
+    timed(times, "kron32", lambda: kron32(v_orig32))
+    b1b = fused_bound(fop, "f64", "ell")
+    b1old = fused_bound(fop, "f64", "blocks")
+    b2b = fused_bound(fop, "f32", "blocks")
+    print(f"[kernel]   B1 vs plain: "
+          f"max_abs_err {err64:.3e}, rel {rel64:.3e} (limit {KERNEL_RTOL}); "
+          f"vs KronMatvec rel {rel_k:.3e}")
     print(f"[kernel]   B2 vs plain: max_abs_err {err32:.3e}, rel {rel32:.3e}; "
           f"vs B1 rel {rel32_b1:.3e} (limit {F32_RTOL})")
-    for name, t in times.items():
-        print(f"[kernel]   {name:9s} {t:9.4f} ms  {fop.nnz / t * 1e-6:8.3f} "
-              f"Gnnz/s")
+    print("[kernel]   name       flushed ms  back-to-back ms  Gnnz/s "
+          "(b1_csr, b2_csr: cuSPARSE CSR, Jx/Jp terms left out)")
+    for name in [k for k in times if not k.endswith("_b2b")]:
+        t, t2 = times[name], times[name + "_b2b"]
+        print(f"[kernel]   {name:9s} {t:11.4f} {t2:16.4f}  "
+              f"{fop.nnz / t * 1e-6:8.3f}")
     print(f"[kernel]   bound: B1 {b1b['bound_ms']:.4f} ms ({b1b['bound_by']}, "
-          f"{b1b['gflop']:.3f} GFLOP, {b1b['mbytes']:.1f} MB), B2 "
-          f"{b2b['bound_ms']:.4f} ms ({b2b['bound_by']}, {b2b['mbytes']:.1f} "
-          f"MB); the kernels' dense block products {b1b['dense_gflop']:.2f} "
-          f"GFLOP")
+          f"{b1b['gflop']:.3f} GFLOP, {b1b['mbytes']:.1f} MB with its ELL "
+          f"tables; with the dense-tile factor blocks "
+          f"{b1old['bound_ms']:.4f} ms, {b1old['mbytes']:.1f} MB), B2 "
+          f"{b2b['bound_ms']:.4f} ms "
+          f"({b2b['bound_by']}, {b2b['mbytes']:.1f} MB)")
     if not (rel64 <= KERNEL_RTOL and rel_k <= KERNEL_RTOL):
         fail(f"{label}: B1 disagrees (rel {rel64:.3e}, vs Kron {rel_k:.3e})")
     if not (rel32 <= F32_RTOL and rel32_b1 <= F32_RTOL):
@@ -269,10 +336,10 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
              f"{rel32_b1:.3e})")
     report.setdefault("fused", []).append(dict(
         label=label, fop=fop, err64=err64, err32=err32, bound64=b1b,
-        bound32=b2b, **times))
+        bound64_blocks=b1old, bound32=b2b, **times))
 
 
-def _power(report: dict, fop) -> None:
+def _power(report: dict, fop, op) -> None:
     """B3 at config 2's (7,7): the kernel against the plain loop, then the
     power-step entry (bench.py's niter=100) timed per step."""
     import torch
@@ -295,70 +362,98 @@ def _power(report: dict, fop) -> None:
           f"{err_v:.3e} (limit {POWER_TOL}); norms {norms[:3].tolist()} ...")
     if not (rel_n <= POWER_TOL and err_v <= POWER_TOL):
         fail(f"B3 disagrees (norms {rel_n:.3e}, vector {err_v:.3e})")
-    plain_step = cuda_ms(lambda: fm.fused_power_plain(v3, ops, 8), reps=5) / 8
+    plain_step = cuda_ms(lambda: fm.fused_power_plain(v3, ops, 8), reps=5,
+                         flush=True) / 8
+    lib, x = csr_yardstick(op, torch.float32)
+
+    def lib_step():
+        w = lib(x)
+        return w / torch.linalg.vector_norm(w)
+
+    lib_ms: dict = {}
+    timed(lib_ms, "csr", lib_step)
     # the power-step entry, as bench.py drives it
     power = fm.FusedPower(fop, POWER_NITER, dev)
     power(v3)
     torch.cuda.synchronize()
     reset_counts()
-    step = cuda_ms(lambda: power(v3), reps=3, warm=0) / POWER_NITER
+    step_b2b = cuda_ms(lambda: power(v3), reps=3, warm=0) / POWER_NITER
     counts = read_counts()
-    b = fused_bound(fop, "f32", extra_flops=3 * fop.ddp * fop.dup)
+    step = cuda_ms(lambda: power(v3), reps=3, warm=0, flush=True) / POWER_NITER
+    b = fused_bound(fop, "f32", "blocks", extra_flops=3 * fop.ddp * fop.dup)
     print(f"[kernel] B3 power-step entry, niter={POWER_NITER}: {step:.4f} ms "
-          f"per step ({fop.nnz / step * 1e-6:.3f} Gnnz/s), plain "
-          f"{plain_step:.4f} ms per step, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}); launches {counts}")
+          f"per step flushed before each call, {step_b2b:.4f} ms back to back "
+          f"({fop.nnz / step * 1e-6:.3f} Gnnz/s), plain {plain_step:.4f} ms "
+          f"per step, cuSPARSE CSR step with norm and scale "
+          f"{lib_ms['csr']:.4f} / {lib_ms['csr_b2b']:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); launches {counts}")
     if counts["B3"] <= 0:
         fail("the power-step entry did not launch B3")
     report["power"] = dict(err=max(err_w, float((norms - n_ref).abs().max())),
-                           ms=step, plain_ms=plain_step, bound=b,
-                           launches=counts["B3"])
+                           ms=step, ms_b2b=step_b2b, plain_ms=plain_step,
+                           csr=lib_ms["csr"], bound=b, launches=counts["B3"])
 
 
 def _kron_tiles(report: dict, label: str, op, strict_rel: bool) -> None:
     """B4 at one sector's shape."""
     import torch
     from edipack_tpu_torch.ops import kron_tiles as kt
+    from edipack_tpu_torch.ops.fused_matvec import ell_matvec_plain
     from edipack_tpu_torch.ops.matvec import KronMatvec
     dev = torch.device(DEVICE)
     mv = kt.KronTileMatvec(op, dev)
     rng = np.random.default_rng(12)
     v = torch.as_tensor(rng.standard_normal(mv.dim).astype(np.float32),
                         device=dev)
-    vp = mv.pad(v)
-    out = kt.kron_matvec_tiles(vp, mv.d, mv.hup_t, mv.hdw)
-    ref = kt.kron_matvec_tiles_plain(vp, mv.d, mv.hup_t, mv.hdw)
+    v2 = v.view(mv.dd, mv.du)
+    hup_t = torch.as_tensor(np.asarray(op.hup).T, dtype=torch.float32,
+                            device=dev).contiguous()
+    hdw = torch.as_tensor(np.asarray(op.hdw), dtype=torch.float32, device=dev)
+    out = kt.kron_matvec_tiles(v2, *mv.tables())
+    ref = ell_matvec_plain(v2, *mv.tables())
+    dense = kt.kron_matvec_tiles_plain(v2, mv.d, hup_t, hdw)
     kron32 = KronMatvec(op, dev, dtype=torch.float32)
     kref = kron32(v)
     got = mv(v)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     rel = _rel(out, ref)
+    err_d = float((out - dense).abs().max())
+    rel_d = _rel(out, dense)
     err_k = float((got - kref).abs().max())
     rel_k = _rel(got, kref)
-    times = dict(
-        b4=cuda_ms(lambda: kt.kron_matvec_tiles(vp, mv.d, mv.hup_t, mv.hdw)),
-        b4_plain=cuda_ms(lambda: kt.kron_matvec_tiles_plain(
-            vp, mv.d, mv.hup_t, mv.hdw)),
-        library=cuda_ms(lambda: vp @ mv.hup_t + mv.hdw @ vp),
-        operator=cuda_ms(lambda: mv(v)),
-        kron32=cuda_ms(lambda: kron32(v)))
+    lib, x = csr_yardstick(op, torch.float32)
+    times: dict = {}
+    timed(times, "b4", lambda: kt.kron_matvec_tiles(v2, *mv.tables()))
+    timed(times, "b4_plain", lambda: ell_matvec_plain(v2, *mv.tables()))
+    timed(times, "csr", lambda: lib(x))
+    timed(times, "gemm", lambda: v2 @ hup_t + hdw @ v2)
+    timed(times, "operator", lambda: mv(v))
+    timed(times, "kron32", lambda: kron32(v))
     b = kron_bound(mv)
-    print(f"[kernel] B4 {label}: {mv.dd0}x{mv.du0} padded {mv.ddp}x{mv.dup}; "
-          f"vs plain max_abs_err {err:.3e} rel {rel:.3e}; operator vs f32 "
-          f"KronMatvec max_abs_err {err_k:.3e} rel {rel_k:.3e}")
-    for name, t in times.items():
-        print(f"[kernel]   {name:9s} {t:9.4f} ms")
+    bold = kron_bound_dense(mv)
+    print(f"[kernel] B4 {label}: {mv.dd}x{mv.du}, ELL widths up "
+          f"{mv.up_idx.shape[0]} dw {mv.dw_idx.shape[0]}; vs plain max_abs_err "
+          f"{err:.3e} rel {rel:.3e}; vs "
+          f"the dense formula max_abs_err {err_d:.3e} rel {rel_d:.3e}; "
+          f"operator vs f32 KronMatvec max_abs_err {err_k:.3e} rel "
+          f"{rel_k:.3e}")
+    print("[kernel]   name       flushed ms  back-to-back ms (csr: cuSPARSE "
+          "CSR factors; gemm: V@Hupᵀ + Hdw@V, dense)")
+    for name in [k for k in times if not k.endswith("_b2b")]:
+        print(f"[kernel]   {name:9s} {times[name]:11.4f} "
+              f"{times[name + '_b2b']:16.4f}")
     print(f"[kernel]   bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-          f"{b['gflop']:.3f} GFLOP, {b['mbytes']:.1f} MB); the kernel's "
-          f"dense tiles {b['dense_gflop']:.2f} GFLOP")
-    ok = (rel <= KRON_RTOL and rel_k <= KRON_RTOL) if strict_rel \
-        else (err <= KRON_ATOL and err_k <= KRON_ATOL)
+          f"{b['gflop']:.3f} GFLOP, {b['mbytes']:.1f} MB with the ELL "
+          f"tables; counted with the padded dense factors "
+          f"{bold['bound_ms']:.4f} ms, {bold['mbytes']:.1f} MB)")
+    ok = (max(rel, rel_d, rel_k) <= KRON_RTOL) if strict_rel \
+        else (max(err, err_d, err_k) <= KRON_ATOL)
     if not ok:
-        fail(f"B4 {label} disagrees (rel {rel:.3e} / {rel_k:.3e}, abs "
-             f"{err:.3e} / {err_k:.3e})")
+        fail(f"B4 {label} disagrees (rel {rel:.3e} / {rel_d:.3e} / "
+             f"{rel_k:.3e}, abs {err:.3e} / {err_d:.3e} / {err_k:.3e})")
     report.setdefault("kron", []).append(dict(label=label, err=err, bound=b,
-                                              **times))
+                                              bound_dense=bold, **times))
 
 
 def phase_kernel(report: dict) -> None:
@@ -366,7 +461,7 @@ def phase_kernel(report: dict) -> None:
     op77 = sector_op(2, 6, 7, 7)
     _fused_shape(report, "(7,7) config 2", op77, 2)
     _fused_shape(report, "(5,4) nbath=4", sector_op(2, 4, 5, 4), 2)
-    _power(report, build_fused_normal(op77, 2))
+    _power(report, build_fused_normal(op77, 2), op77)
     _kron_tiles(report, "(7,7) config 2", op77, strict_rel=True)
     _kron_tiles(report, "(3,2) nbath=2",
                 sector_op(2, 2, 3, 2, KRON_SMALL,
@@ -507,7 +602,8 @@ def phase_solve(report: dict) -> None:
           f"e0 {vals[0]:.12f}, solve e0 {res.e0:.12f}, |diff| {dev_e0:.3e}")
     if not dev_e0 <= 1e-10:
         fail(f"ground-state e0 disagrees with KronMatvec ({dev_e0:.3e})")
-    # the (7,7) sector's lowest level through the dense-tile operator (B4)
+    # the (7,7) sector's lowest level through the row-gather Kron operator
+    # (B4)
     sec77 = res.table.by_qn(("n", (7,), (7,)))
     e77 = float(res.diag.evals_by_sector[sec77.index][0])
     tiles = kt.KronTileMatvec(build_normal_sector_op(
@@ -547,45 +643,63 @@ def phase_solve(report: dict) -> None:
     ed.ed_finalize_solver()
 
 
+def _library(pairs) -> dict:
+    """The fastest of the yardsticks ((name, ms) pairs) and its name."""
+    name, ms = min(pairs, key=lambda p: p[1])
+    return dict(library_ms=ms, library_call=name)
+
+
 def kernel_report(report: dict) -> list:
     big = report["fused"][0]                 # config 2's (7,7) sector
     kron = report["kron"][0]
     pw = report["power"]
     src = "edipack_tpu_torch/csrc/"
+    csr = ("D*V + torch.sparse.mm(Hdw_csr, V) + torch.sparse.mm(Hup_csr, "
+           "V.T).T, {} (cuSPARSE; Jx/Jp terms left out)")
     return [
         dict(name="fused_normal_matvec_f64", route="cuda",
-             source=src + "fused_normal.cu",
+             source=src + "row_gather.cu",
              replaces="edipack_tpu/ops/pallas_fused.py:237",
              launches=report["B1_launches"],
              max_abs_err=max(s["err64"] for s in report["fused"]),
-             ms=big["b1"], plain_ms=big["b1_plain"],
+             ms=big["b1"], ms_back_to_back=big["b1_b2b"],
+             plain_ms=big["b1_plain"],
              bound_ms=big["bound64"]["bound_ms"],
-             bound_by=big["bound64"]["bound_by"], library_ms=None),
+             bound_by=big["bound64"]["bound_by"],
+             **_library([(csr.format("f64"), big["b1_csr"])])),
         dict(name="fused_normal_matvec_f32", route="cuda",
              source=src + "fused_normal.cu",
              replaces="edipack_tpu/ops/pallas_fused.py:134",
              launches=report["B2_launches"],
              max_abs_err=max(s["err32"] for s in report["fused"]),
-             ms=big["b2"], plain_ms=big["b2_plain"],
+             ms=big["b2"], ms_back_to_back=big["b2_b2b"],
+             plain_ms=big["b2_plain"],
              bound_ms=big["bound32"]["bound_ms"],
-             bound_by=big["bound32"]["bound_by"], library_ms=None),
+             bound_by=big["bound32"]["bound_by"],
+             **_library([(csr.format("f32"), big["b2_csr"])])),
         dict(name="fused_normal_power_f32", route="cuda",
              source=src + "fused_normal.cu",
              replaces="edipack_tpu/ops/pallas_fused.py:248",
              launches=pw["launches"], max_abs_err=pw["err"],
-             ms=pw["ms"], plain_ms=pw["plain_ms"],
+             ms=pw["ms"], ms_back_to_back=pw["ms_b2b"],
+             plain_ms=pw["plain_ms"],
              bound_ms=pw["bound"]["bound_ms"],
-             bound_by=pw["bound"]["bound_by"], library_ms=None,
+             bound_by=pw["bound"]["bound_by"],
+             **_library([(csr.format("f32") + " with vector_norm and scale",
+                          pw["csr"])]),
              per="power step"),
         dict(name="kron_tiles_matvec_f32", route="cuda",
-             source=src + "kron_tiles.cu",
+             source=src + "row_gather.cu",
              replaces="edipack_tpu/ops/pallas_kron.py:22",
              launches=report["B4_launches"],
              max_abs_err=max(s["err"] for s in report["kron"]),
-             ms=kron["b4"], plain_ms=kron["b4_plain"],
+             ms=kron["b4"], ms_back_to_back=kron["b4_b2b"],
+             plain_ms=kron["b4_plain"],
              bound_ms=kron["bound"]["bound_ms"],
              bound_by=kron["bound"]["bound_by"],
-             library_ms=kron["library"]),
+             **_library([(csr.format("f32"), kron["csr"]),
+                         ("V @ Hup.T + Hdw @ V, f32 dense (cuBLAS)",
+                          kron["gemm"])])),
     ]
 
 

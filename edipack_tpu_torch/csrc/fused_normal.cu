@@ -1,13 +1,9 @@
-// Fused normal-sector matvec  W3 = H · V3  for Hopper (sm_90a), in f64 (B1)
-// and f32 (B2), and the f32 chained power steps (B3).
+// Fused normal-sector matvec  W3 = H · V3  for Hopper (sm_90a) in f32 (B2),
+// and the f32 chained power steps (B3), as dense 128x128 factor tiles.
 //
 // Replaces the TPU kernels of edipack_tpu/ops/pallas_fused.py:
-//   * _matvec_ds_kernel (body _column_block_ds) -> fused_normal_matvec_f64.
-//     That kernel carried double-single hi/lo f32 planes because the TPU has
-//     no f64; the H100 has native FP64, so this is one kernel in plain f64
-//     and the caller needs no merge or polish.
 //   * _matvec_kernel (body _column_block) -> fused_normal_matvec_f32: the
-//     same product in full FP32 FMA (the TPU kernel's 'default' precision is
+//     product in full FP32 FMA (the TPU kernel's 'default' precision is
 //     one bf16 pass; 'highest' is full f32).
 //   * _power_kernel -> fused_normal_power_f32: niter chained steps
 //     w = H v, v = w / |w| with the normalization folded lazily into the
@@ -18,6 +14,8 @@
 //     one-block finalize that reduces the partials in a fixed order
 //     (deterministic, no atomics) into norms[it] and ssq[it + 1]. The two V
 //     buffers ping-pong; 2 * niter launches on one stream, no host sync.
+// The f64 matvec of the same operator (B1, _matvec_ds_kernel) is the sparse
+// row-gather kernel of row_gather.cu; B2 and B3 move to it next.
 //
 // Layout (imp-MSB column-blocked, see ops/fused_normal.py):
 //   V3[(j*ddp + d)*128 + c] = V[d, j*128 + c],  j < nbu, d < ddp = nbd*128.
@@ -33,26 +31,21 @@
 // What bounds it on the card: at config 2's (7,7) sector (ddp=dup=3456,
 // 27x27 tiles, 6.74 blocks per column on average for each factor) H has
 // about 1.7e8 nonzeros, so the function needs 0.5 GFLOP and is bound by
-// its bytes: V3 and W3 (96 MB each in f64, 48 MB in f32) and 24 MB (f32)
-// or 48 MB (f64) of factor blocks, 0.036 ms (f32) / 0.071 ms (f64) at
-// 3.35 TB/s. The blocks are under 1 % filled (a hop matrix has ~6 nonzeros
-// per row), but this design multiplies them as dense 128x128 tiles:
-// 2*ddp*dup*128*(6.74+6.74) = 41 GFLOP per matvec, which bounds the kernel
-// by its own FMA work. A design that skips the zeros is the next step.
-// Within the dense-tile design the FMA pipes are kept fed:
+// its bytes: V3 and W3 (48 MB each) and 24 MB of factor blocks, 0.036 ms
+// at 3.35 TB/s. The blocks are under 1 % filled (a hop matrix has ~6
+// nonzeros per row), but this design multiplies them as dense 128x128
+// tiles: 2*ddp*dup*128*(6.74+6.74) = 41 GFLOP per matvec, which bounds the
+// kernel by its own FMA work. Within the dense-tile design the FMA pipes
+// are kept fed:
 //   * one thread block owns one 128x128 output tile (row block r, column
 //     block j) and writes it once: no atomics, deterministic sums;
 //   * each factor block product is a 128x128x128 GEMM staged through
-//     shared memory in K-chunks of 16 (33 KB of shared memory in f64, never
-//     a whole 128 KB f64 block); the next chunk is fetched into registers
-//     while the current one is multiplied;
+//     shared memory in K-chunks of 16; the next chunk is fetched into
+//     registers while the current one is multiplied;
 //   * every thread holds an 8x8 register tile of the output with a stride
 //     of 16 rows / 16 columns, so the shared-memory reads are broadcast or
 //     conflict-free, and each k-step is 64 FMAs per 16 loads;
 //   * the diagonal and the run shifts are folded into the epilogue.
-// The f64 and f32 kernels are one template. A sparse-aware product, TMA
-// pipelines and a persistent power kernel with a grid-wide sync are left
-// for later.
 
 #include <cuda_runtime.h>
 
@@ -299,19 +292,6 @@ cudaError_t launch_matvec(const T* v3, T* w3, const T* up_vals,
 }  // namespace
 
 extern "C" {
-
-cudaError_t fused_normal_matvec_f64(const double* v3, double* w3,
-                                    const double* up_vals, const int* up_src,
-                                    const int* up_ptr, const double* dw_vals,
-                                    const int* dw_src, const int* dw_ptr,
-                                    const double* diag_a, const double* diag_b,
-                                    const int* runs_i, const double* runs_v,
-                                    int nruns, int ddp, int nbu, int nbd,
-                                    cudaStream_t stream) {
-  return launch_matvec<double>(v3, w3, up_vals, up_src, up_ptr, dw_vals,
-                               dw_src, dw_ptr, diag_a, diag_b, runs_i, runs_v,
-                               nruns, ddp, nbu, nbd, stream);
-}
 
 cudaError_t fused_normal_matvec_f32(const float* v3, float* w3,
                                     const float* up_vals, const int* up_src,

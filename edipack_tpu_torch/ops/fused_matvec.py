@@ -2,22 +2,26 @@
 and f32, and the f32 chained power steps.
 
 Counterpart of edipack_tpu.ops.pallas_fused. The TPU package has three
-kernels here; each has one CUDA counterpart in ``csrc/fused_normal.cu``,
-built from the same operator metadata (ops.fused_normal.build_fused_normal):
+kernels here; each has one CUDA counterpart, built from the same operator
+metadata (ops.fused_normal.build_fused_normal):
 
 * B1, ``FusedMatvecDS`` wrapped by ``MixedFusedKron``: the TPU kernel
-  computes H·V as double-single f32 planes; the card has native FP64, so
-  here it is one f64 kernel;
-* B2, ``FusedMatvec`` wrapped by ``FusedKron``: the same product in f32;
-* B3, ``FusedPower``: ``niter`` chained steps w = H·v, v = w/‖w‖.
+  computes H·V as double-single f32 planes as dense block products; the
+  card has native FP64, so here it is one f64 sparse row-gather kernel
+  (``csrc/row_gather.cu``) that reads ELL tables of the hop factors;
+* B2, ``FusedMatvec`` wrapped by ``FusedKron``: the same product in f32,
+  as dense 128×128 factor tiles (``csrc/fused_normal.cu``);
+* B3, ``FusedPower``: ``niter`` chained steps w = H·v, v = w/‖w‖, on B2's
+  tiles.
 
 * :func:`fused_matvec` — the matvec wrapper: for a CUDA tensor it launches
   B1 (float64) or B2 (float32), or raises; it runs
   :func:`fused_matvec_plain` only for a tensor on the CPU. Each launch adds
   one to the module counter ``launches`` (B1) or ``launches_f32`` (B2).
 * :func:`fused_matvec_plain` — the same function in plain PyTorch, in the
-  operands' dtype (gathered source blocks and one matmul per column / row
-  block, then the rectangle shifts of the non-local terms).
+  operands' dtype: for float64 B1's ELL gathers, one torch gather per slot
+  (:func:`ell_matvec_plain`); for float32 B2's block products
+  (:func:`block_matvec_plain`). Both add the Jx/Jp rectangle shifts last.
 * :class:`FusedKron` — the solver-facing operator on flat internal vectors,
   with the original <-> internal layout conversion.
 * :class:`FusedPower` — B3; each call on the card adds its 2·niter kernel
@@ -44,8 +48,10 @@ _ENTRY = {torch.float64: "fused_normal_matvec_f64",
 
 class FusedOperands:
     """Device-resident operands of one sector's fused matvec in ``dtype``:
-    the exact f64 tables for B1, or the f32 tables the TPU package's B2
-    reads (``fop.up_vals``/``dw_vals``, the diagonal factors cast to f32)."""
+    for B1 (float64) the ELL tables of the permuted hop factors, the f64
+    diagonal factors and the runs; for B2/B3 (float32) the f32 block tables
+    the TPU package's B2 reads (``fop.up_vals``/``dw_vals``, the diagonal
+    factors cast to f32) and the runs."""
 
     def __init__(self, fop: FusedNormalOp, device: torch.device,
                  dtype: torch.dtype = DTYPE):
@@ -54,40 +60,53 @@ class FusedOperands:
         self.dtype = dtype
         self.ddp, self.dup = fop.ddp, fop.dup
         self.nbu, self.nbd = fop.dup // BLK, fop.ddp // BLK
-        f64 = dtype == torch.float64
-        fl = dict(dtype=dtype, device=device)
-        i32 = dict(dtype=torch.int32, device=device)
 
-        def put(x64, x32):
-            return torch.as_tensor(x64 if f64 else x32, **fl).contiguous()
+        def put(x, dt=dtype):          # the kernels read row-major tables
+            return torch.as_tensor(x, dtype=dt, device=device).contiguous()
 
-        self.up_vals = put(fop.up_vals64, fop.up_vals)
-        self.dw_vals = put(fop.dw_vals64, fop.dw_vals)
-        self.diag_a = put(fop.diag_a64, fop.diag_a)
-        self.diag_b = put(fop.diag_b64, fop.diag_b)
-        self.up_src = torch.as_tensor(fop.up_src, **i32)
-        self.dw_src = torch.as_tensor(fop.dw_src, **i32)
-        self.up_ptr = torch.as_tensor(fop.up_ptr, **i32)
-        self.dw_ptr = torch.as_tensor(fop.dw_ptr, **i32)
+        if dtype == torch.float64:
+            self.up_idx = put(fop.up_ell_idx, torch.int32)
+            self.up_val = put(fop.up_ell_val)
+            self.dw_idx = put(fop.dw_ell_idx, torch.int32)
+            self.dw_val = put(fop.dw_ell_val)
+            self.diag_a = put(fop.diag_a64)
+            self.diag_b = put(fop.diag_b64)
+            # the kernel reads only the factors' leading nonzero columns
+            used = np.flatnonzero(np.any(fop.diag_a64 != 0, axis=0)
+                                  & np.any(fop.diag_b64 != 0, axis=0))
+            self.rank = int(used[-1]) + 1 if len(used) else 0
+        else:
+            self.up_vals = put(fop.up_vals)
+            self.dw_vals = put(fop.dw_vals)
+            self.diag_a = put(fop.diag_a)
+            self.diag_b = put(fop.diag_b)
+            self.up_src = put(fop.up_src, torch.int32)
+            self.dw_src = put(fop.dw_src, torch.int32)
+            self.up_ptr = put(fop.up_ptr, torch.int32)
+            self.dw_ptr = put(fop.dw_ptr, torch.int32)
+            # host copies for the plain version's loops
+            self.up_ptr_h = [int(x) for x in fop.up_ptr]
+            self.dw_ptr_h = [int(x) for x in fop.dw_ptr]
         runs = [(r.dd0, r.sd0, r.ld, r.du0, r.su0, r.lu) for r in fop.nl_runs]
-        self.runs_i = torch.as_tensor(np.asarray(runs, np.int32).reshape(-1, 6),
-                                      **i32)
-        self.runs_v = torch.as_tensor([r.val for r in fop.nl_runs], **fl)
-        # host copies for the plain version's loops
+        self.runs_i = put(np.asarray(runs, np.int32).reshape(-1, 6),
+                          torch.int32)
+        self.runs_v = put([r.val for r in fop.nl_runs])
         self.runs = list(fop.nl_runs)
-        self.up_ptr_h = [int(x) for x in fop.up_ptr]
-        self.dw_ptr_h = [int(x) for x in fop.dw_ptr]
-        self.up_src_l = self.up_src.long()
-        self.dw_src_l = self.dw_src.long()
 
     def args(self):
-        """The C entry points' operand pointers, in their order."""
+        """The C entry point's operand pointers and sizes, in its order."""
+        runs = (self.runs_i.data_ptr(), self.runs_v.data_ptr(), len(self.runs))
+        if self.dtype == torch.float64:
+            return (self.up_idx.data_ptr(), self.up_val.data_ptr(),
+                    self.up_idx.shape[0], self.dw_idx.data_ptr(),
+                    self.dw_val.data_ptr(), self.dw_idx.shape[0],
+                    self.diag_a.data_ptr(), self.diag_b.data_ptr(),
+                    self.rank, *runs, self.ddp, self.dup)
         return (self.up_vals.data_ptr(), self.up_src.data_ptr(),
                 self.up_ptr.data_ptr(), self.dw_vals.data_ptr(),
                 self.dw_src.data_ptr(), self.dw_ptr.data_ptr(),
-                self.diag_a.data_ptr(), self.diag_b.data_ptr(),
-                self.runs_i.data_ptr(), self.runs_v.data_ptr(),
-                len(self.runs), self.ddp, self.nbu, self.nbd)
+                self.diag_a.data_ptr(), self.diag_b.data_ptr(), *runs,
+                self.ddp, self.nbu, self.nbd)
 
 
 def _check(v3: torch.Tensor, ops: FusedOperands) -> None:
@@ -102,9 +121,9 @@ def _check(v3: torch.Tensor, ops: FusedOperands) -> None:
                          f"{(ops.nbu * ops.ddp, BLK)}, got {tuple(v3.shape)}")
     if not v3.is_contiguous():
         raise ValueError("fused_matvec: input must be contiguous")
-    if v3.device != ops.up_vals.device:
+    if v3.device != ops.diag_a.device:
         raise ValueError(f"fused_matvec: input on {v3.device}, operands on "
-                         f"{ops.up_vals.device}")
+                         f"{ops.diag_a.device}")
     if v3.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"fused_matvec: unsupported device {v3.device}")
 
@@ -115,7 +134,8 @@ def _stream(t: torch.Tensor) -> int:
 
 def fused_matvec(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     """W3 = H·V3 on the column-blocked layout (nbu*ddp, 128), in v3's dtype
-    (float64: B1, float32: B2)."""
+    (float64: B1, float32: B2). B1 raises for a sector whose one row of V
+    does not fit in shared memory (padded up dimension above about 29k)."""
     global launches, launches_f32
     _check(v3, ops)
     if v3.device.type == "cpu":
@@ -124,8 +144,8 @@ def fused_matvec(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     name = _ENTRY[v3.dtype]
     w3 = torch.empty_like(v3)
     with torch.cuda.device(v3.device):
-        err = getattr(lib, name)(v3.data_ptr(), w3.data_ptr(), *ops.args(),
-                                 _stream(v3))
+        err = getattr(lib, name)(v3.data_ptr(), w3.data_ptr(),
+                                 *ops.args(), _stream(v3))
     _build.check(lib, err, f"{name} launch")
     if v3.dtype == torch.float64:
         launches += 1
@@ -134,9 +154,45 @@ def fused_matvec(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     return w3
 
 
+def ell_matvec_plain(v2: torch.Tensor, diag: torch.Tensor,
+                     up_idx: torch.Tensor, up_val: torch.Tensor,
+                     dw_idx: torch.Tensor, dw_val: torch.Tensor
+                     ) -> torch.Tensor:
+    """D⊙V + V·Hupᵀ + Hdw·V on the 2-D (d, u) layout from the ELL tables of
+    Hup and Hdw (slot-major, ``fused_normal.ell_table``), one gather per
+    slot, summed in the row-gather kernel's order."""
+    w = diag * v2
+    for e in range(up_idx.shape[0]):
+        w += up_val[e] * v2[:, up_idx[e]]
+    for e in range(dw_idx.shape[0]):
+        w += dw_val[e].unsqueeze(1) * v2[dw_idx[e]]
+    return w
+
+
+def _add_runs(w2: torch.Tensor, v2: torch.Tensor, ops: FusedOperands
+              ) -> None:
+    """The non-local Jx/Jp terms: rectangle shifts on the 2-D layout."""
+    for rn in ops.runs:
+        w2[rn.dd0:rn.dd0 + rn.ld, rn.du0:rn.du0 + rn.lu] += \
+            rn.val * v2[rn.sd0:rn.sd0 + rn.ld, rn.su0:rn.su0 + rn.lu]
+
+
 def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_matvec` (same function, in the
-    operands' dtype)."""
+    operands' dtype, from the same tables as the kernel)."""
+    if ops.dtype == torch.float32:
+        return block_matvec_plain(v3, ops)
+    nbu, ddp = ops.nbu, ops.ddp
+    v2 = v3.view(nbu, ddp, BLK).permute(1, 0, 2).reshape(ddp, nbu * BLK)
+    w2 = ell_matvec_plain(v2, ops.diag_a @ ops.diag_b.T, ops.up_idx,
+                          ops.up_val, ops.dw_idx, ops.dw_val)
+    _add_runs(w2, v2, ops)
+    return w2.view(ddp, nbu, BLK).permute(1, 0, 2).reshape(nbu * ddp, BLK)
+
+
+def block_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
+    """B2's plain version: the block tables' products (gathered source
+    blocks and one matmul per column / row block), then the runs."""
     nbu, nbd, ddp = ops.nbu, ops.nbd, ops.ddp
     v = v3.view(nbu, ddp, BLK)
     # diagonal from its rank-8 factors: D[j, d, c] = a[d] . b[j*BLK + c]
@@ -147,7 +203,7 @@ def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     for j in range(nbu):
         lo, hi = ops.up_ptr_h[j], ops.up_ptr_h[j + 1]
         if hi > lo:
-            g = v.index_select(0, ops.up_src_l[lo:hi])          # (n, ddp, BLK)
+            g = v.index_select(0, ops.up_src[lo:hi])          # (n, ddp, BLK)
             g = g.permute(1, 0, 2).reshape(ddp, (hi - lo) * BLK)
             w[j] += g @ ops.up_vals[lo:hi].reshape((hi - lo) * BLK, BLK)
     # dw factor: per 128-row block r, all column blocks at once
@@ -157,16 +213,13 @@ def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
         lo, hi = ops.dw_ptr_h[r], ops.dw_ptr_h[r + 1]
         if hi > lo:
             a = ops.dw_vals[lo:hi].permute(2, 0, 1).reshape(BLK, (hi - lo) * BLK)
-            g = vb.index_select(1, ops.dw_src_l[lo:hi])   # (nbu, n, BLK, BLK)
+            g = vb.index_select(1, ops.dw_src[lo:hi])   # (nbu, n, BLK, BLK)
             wb[:, r] += a @ g.reshape(nbu, (hi - lo) * BLK, BLK)
     if not ops.runs:
         return w.view(nbu * ddp, BLK)
-    # non-local Jx/Jp terms: rectangle shifts on the 2D (ddp, dup) layout
     w2 = w.permute(1, 0, 2).reshape(ddp, nbu * BLK)
     v2 = v.permute(1, 0, 2).reshape(ddp, nbu * BLK)
-    for rn in ops.runs:
-        w2[rn.dd0:rn.dd0 + rn.ld, rn.du0:rn.du0 + rn.lu] += \
-            rn.val * v2[rn.sd0:rn.sd0 + rn.ld, rn.su0:rn.su0 + rn.lu]
+    _add_runs(w2, v2, ops)
     return w2.view(ddp, nbu, BLK).permute(1, 0, 2).reshape(nbu * ddp, BLK)
 
 

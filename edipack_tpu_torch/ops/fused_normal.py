@@ -22,8 +22,11 @@ path):
    groups).  The factor products then run as block-compacted MXU matmuls
    with the zero blocks skipped entirely.
 
-The device kernel lives in ops.fused_matvec (csrc/fused_normal.cu); this
-module holds the pure NumPy metadata builder.
+The f32 kernels (csrc/fused_normal.cu) read the compacted blocks; the f64
+kernel (csrc/row_gather.cu) reads ELL tables of the same permuted factors,
+the ~6 nonzeros of each row, and skips the zeros the blocks still hold. The
+device side lives in ops.fused_matvec; this module holds the pure NumPy
+metadata builder.
 """
 from __future__ import annotations
 
@@ -75,8 +78,28 @@ def _permute_perm(src: np.ndarray, sgn: np.ndarray, perm: np.ndarray,
     return src2, sgn2
 
 
+def ell_table(h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """ELL form of the square matrix ``h``: (idx, val), both (width, n),
+    slot-major, so that  (h @ x)[i] = sum_e val[e, i] * x[idx[e, i]].
+
+    ``width`` is the largest number of nonzeros in a row (at least 1). A
+    row's nonzeros fill its first slots in column order; its empty slots
+    hold value 0 and the row's own index, so every index is in range.
+    Returns (idx int32, val f64)."""
+    n = h.shape[0]
+    rows, cols = np.nonzero(h)
+    counts = np.bincount(rows, minlength=n)
+    width = max(int(counts.max(initial=0)), 1)
+    slot = np.arange(len(rows)) - np.repeat(np.cumsum(counts) - counts, counts)
+    idx = np.tile(np.arange(n, dtype=np.int32), (width, 1))
+    val = np.zeros((width, n), np.float64)
+    idx[slot, rows] = cols
+    val[slot, rows] = h[rows, cols]
+    return idx, val
+
+
 def _block_compact(h: np.ndarray, blk: int = BLK
-                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Compact the padded square matrix ``h`` (f64) into nonzero (blk x blk)
     blocks grouped by COLUMN-block:  for col-block j the blocks
     vals[ptr[j]:ptr[j+1]] hold h[src[m]*blk:(src[m]+1)*blk, j*blk:(j+1)*blk].
@@ -84,7 +107,7 @@ def _block_compact(h: np.ndarray, blk: int = BLK
     Grouping by column-block serves the right-multiply ``out = x @ h``:
     out[:, jB] = sum_m x[:, src[m]B] @ vals[m].
 
-    Returns (vals f32, vals f64, src, ptr)."""
+    Returns (vals f64, src, ptr)."""
     n = h.shape[0]
     assert n % blk == 0
     nb = n // blk
@@ -102,7 +125,7 @@ def _block_compact(h: np.ndarray, blk: int = BLK
         v64 = np.stack(vals).astype(np.float64)
     else:
         v64 = np.zeros((0, blk, blk), np.float64)
-    return v64.astype(np.float32), v64, np.asarray(srcs, np.int32), ptr
+    return v64, np.asarray(srcs, np.int32), ptr
 
 
 @dataclass
@@ -144,13 +167,15 @@ class FusedNormalOp:
     diag_b: np.ndarray
     nl_runs: List[NlRun]
     nnz: int
-    # exact f64 factor blocks (same patterns as up_vals/dw_vals, which keep
-    # the f32 values of the TPU layout) and f64 diagonal factors: the
-    # operands of the f64 kernel
-    up_vals64: Optional[np.ndarray] = None
-    dw_vals64: Optional[np.ndarray] = None
+    # f64 diagonal factors and ELL tables (``ell_table``) of the permuted
+    # padded factors Hup (rows u) and Hdw (rows d): the operands of the f64
+    # kernel
     diag_a64: Optional[np.ndarray] = None
     diag_b64: Optional[np.ndarray] = None
+    up_ell_idx: Optional[np.ndarray] = None
+    up_ell_val: Optional[np.ndarray] = None
+    dw_ell_idx: Optional[np.ndarray] = None
+    dw_ell_val: Optional[np.ndarray] = None
 
     # ---- layouts -------------------------------------------------------
     def to_blocked(self, v2: np.ndarray) -> np.ndarray:
@@ -230,8 +255,10 @@ def build_fused_normal(op, norb: int) -> Optional[FusedNormalOp]:
     hdw = np.zeros((ddp, ddp))
     hdw[:dd, :dd] = op.hdw[np.ix_(perm_dw, perm_dw)]
 
-    up_vals, up64, up_src, up_ptr = _block_compact(hup.T)
-    dw_vals, dw64, dw_src, dw_ptr = _block_compact(hdw.T)
+    up64, up_src, up_ptr = _block_compact(hup.T)
+    dw64, dw_src, dw_ptr = _block_compact(hdw.T)
+    up_idx, up_val = ell_table(hup)
+    dw_idx, dw_val = ell_table(hdw)
 
     ddw, dup_vec, adw, bup = dfac
     r = adw.shape[1]
@@ -249,9 +276,10 @@ def build_fused_normal(op, norb: int) -> Optional[FusedNormalOp]:
     return FusedNormalOp(
         dd=dd, du=du, ddp=ddp, dup=dup,
         perm_up=perm_up, perm_dw=perm_dw,
-        up_vals=up_vals, up_src=up_src, up_ptr=up_ptr,
-        dw_vals=dw_vals, dw_src=dw_src, dw_ptr=dw_ptr,
+        up_vals=up64.astype(np.float32), up_src=up_src, up_ptr=up_ptr,
+        dw_vals=dw64.astype(np.float32), dw_src=dw_src, dw_ptr=dw_ptr,
         diag_a=a64.astype(np.float32), diag_b=b64.astype(np.float32),
-        nl_runs=nl_runs, nnz=op.nnz_estimate(),
-        up_vals64=up64, dw_vals64=dw64, diag_a64=a64, diag_b64=b64,
+        nl_runs=nl_runs, nnz=op.nnz_estimate(), diag_a64=a64, diag_b64=b64,
+        up_ell_idx=up_idx, up_ell_val=up_val,
+        dw_ell_idx=dw_idx, dw_ell_val=dw_val,
     )

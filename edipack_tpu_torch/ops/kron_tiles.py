@@ -1,17 +1,22 @@
-"""Dense-tile Kronecker sector matvec in f32 (kernel B4).
+"""Kronecker sector matvec in f32 through a sparse row-gather kernel (B4).
 
 Counterpart of edipack_tpu.ops.pallas_kron: ``out = D⊙V + V·Hupᵀ + Hdw·V``
-on the dense spin factors of a phonon-free normal sector, 128×128 output
-tiles, in ``csrc/kron_tiles.cu``.
+on the spin factors of a phonon-free normal sector. The TPU kernel
+multiplies the dense factors as 128×128 tiles; here the factors are ELL
+tables of their nonzeros (``fused_normal.ell_table``, in the original basis
+order) and ``csrc/row_gather.cu`` gathers them, on the unpadded (dd, du)
+layout, masking its own ragged edge. D stays dense, as in the TPU kernel.
 
 * :func:`kron_matvec_tiles` — the kernel wrapper: launches the CUDA kernel
-  for CUDA tensors (or raises) and runs :func:`kron_matvec_tiles_plain`
-  only for tensors on the CPU. Each launch adds one to ``launches``.
+  for CUDA tensors (or raises) and runs its plain PyTorch version,
+  ``fused_matvec.ell_matvec_plain`` on the same tables, only for tensors on
+  the CPU. Each launch adds one to ``launches``.
+* :func:`kron_matvec_tiles_plain` — the dense formula, the reference the
+  kernel and its plain version are held to.
 * :class:`KronTileMatvec` — the operator on flat sector vectors
-  (edipack_tpu's ``KronPallasMatvec``): zero-pads V to the kernel's tile and
-  adds the non-local terms outside the kernel, as the TPU package does,
-  through the signed-permutation gathers of ops.matvec (the same function
-  without a dense ``nl_a``).
+  (edipack_tpu's ``KronPallasMatvec``): adds the non-local terms outside
+  the kernel, as the TPU package does, through the signed-permutation
+  gathers of ops.matvec (the same function without a dense ``nl_a``).
 """
 from __future__ import annotations
 
@@ -19,24 +24,29 @@ import numpy as np
 import torch
 
 from . import _build
+from .fused_matvec import ell_matvec_plain
+from .fused_normal import ell_table
 from .matvec import NonLocal
 
-BLK = 128            # the kernel's output tile edge
 launches = 0         # kernel launches since the counter was last reset
 
 
-def _check(v, d, hup_t, hdw) -> None:
-    ddp, dup = v.shape if v.dim() == 2 else (-1, -1)
-    want = {"v": (v, (ddp, dup)), "d": (d, (ddp, dup)),
-            "hup_t": (hup_t, (dup, dup)), "hdw": (hdw, (ddp, ddp))}
-    if ddp % BLK or dup % BLK or ddp <= 0 or dup <= 0:
-        raise ValueError(f"kron_matvec_tiles: V must be 2-D with sides that "
-                         f"are multiples of {BLK}, got {tuple(v.shape)}")
-    for name, (t, shape) in want.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"kron_matvec_tiles: {name} must be float32, "
+def _check(v, d, up_idx, up_val, dw_idx, dw_val) -> None:
+    if v.dim() != 2 or v.shape[0] <= 0 or v.shape[1] <= 0:
+        raise ValueError(f"kron_matvec_tiles: V must be 2-D and not empty, "
+                         f"got {tuple(v.shape)}")
+    dd, du = v.shape
+    want = {"v": (v, torch.float32, (dd, du)),
+            "d": (d, torch.float32, (dd, du)),
+            "up_idx": (up_idx, torch.int32, (up_idx.shape[0], du)),
+            "up_val": (up_val, torch.float32, tuple(up_idx.shape)),
+            "dw_idx": (dw_idx, torch.int32, (dw_idx.shape[0], dd)),
+            "dw_val": (dw_val, torch.float32, tuple(dw_idx.shape))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype:
+            raise TypeError(f"kron_matvec_tiles: {name} must be {dtype}, "
                             f"got {t.dtype}")
-        if tuple(t.shape) != shape:
+        if t.dim() != len(shape) or tuple(t.shape) != shape:
             raise ValueError(f"kron_matvec_tiles: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
@@ -48,21 +58,25 @@ def _check(v, d, hup_t, hdw) -> None:
         raise RuntimeError(f"kron_matvec_tiles: unsupported device {v.device}")
 
 
-def kron_matvec_tiles(v: torch.Tensor, d: torch.Tensor, hup_t: torch.Tensor,
-                      hdw: torch.Tensor) -> torch.Tensor:
-    """out = D⊙V + V·Hupᵀ + Hdw·V; V, D (ddp, dup), Hupᵀ (dup, dup), Hdw
-    (ddp, ddp), f32, ddp and dup multiples of 128."""
+def kron_matvec_tiles(v: torch.Tensor, d: torch.Tensor, up_idx: torch.Tensor,
+                      up_val: torch.Tensor, dw_idx: torch.Tensor,
+                      dw_val: torch.Tensor) -> torch.Tensor:
+    """out = D⊙V + V·Hupᵀ + Hdw·V; V, D (dd, du) f32; (up_idx, up_val) the
+    ELL table of Hup (width, du), (dw_idx, dw_val) of Hdw (width, dd), int32
+    and f32. Raises for a sector whose one row of V does not fit in shared
+    memory (du above about 58k)."""
     global launches
-    _check(v, d, hup_t, hdw)
+    _check(v, d, up_idx, up_val, dw_idx, dw_val)
     if v.device.type == "cpu":
-        return kron_matvec_tiles_plain(v, d, hup_t, hdw)
+        return ell_matvec_plain(v, d, up_idx, up_val, dw_idx, dw_val)
     lib = _build.load_library()
     out = torch.empty_like(v)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = lib.kron_tiles_matvec_f32(
-            v.data_ptr(), d.data_ptr(), hup_t.data_ptr(), hdw.data_ptr(),
-            out.data_ptr(), v.shape[0], v.shape[1], stream)
+            v.data_ptr(), d.data_ptr(), up_idx.data_ptr(), up_val.data_ptr(),
+            up_idx.shape[0], dw_idx.data_ptr(), dw_val.data_ptr(),
+            dw_idx.shape[0], out.data_ptr(), v.shape[0], v.shape[1], stream)
     _build.check(lib, err, "kron_tiles_matvec_f32 launch")
     launches += 1
     return out
@@ -71,50 +85,47 @@ def kron_matvec_tiles(v: torch.Tensor, d: torch.Tensor, hup_t: torch.Tensor,
 def kron_matvec_tiles_plain(v: torch.Tensor, d: torch.Tensor,
                             hup_t: torch.Tensor, hdw: torch.Tensor
                             ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`kron_matvec_tiles`."""
+    """The same function from the dense factors Hupᵀ and Hdw: the
+    reference the kernel and its plain version are held to."""
     return d * v + v @ hup_t + hdw @ v
 
 
 class KronTileMatvec:
-    """f32 matvec of a phonon-free normal sector through the dense-tile
+    """f32 matvec of a phonon-free normal sector through the row-gather
     kernel, on flat (dd*du,) vectors in the original basis order."""
 
     def __init__(self, op, device: torch.device):
         if op.ph_mat is not None:
             raise ValueError("KronTileMatvec: phonon sectors are not supported")
         dd, du = op.hdw.shape[0], op.hup.shape[0]
-        self.dd0, self.du0 = dd, du
-        self.ddp = -(-dd // BLK) * BLK
-        self.dup = -(-du // BLK) * BLK
+        self.dd, self.du = dd, du
         self.dim = dd * du
         self.dtype = torch.float32
         self.device = device
         self.nnz = op.nnz_estimate()
         self.n_calls = 0
-
-        def padded(x, shape):
-            out = np.zeros(shape, np.float32)
-            out[:x.shape[0], :x.shape[1]] = x
-            return torch.as_tensor(out, device=device)
-
-        self.d = padded(op.d.reshape(dd, du), (self.ddp, self.dup))
-        self.hup_t = padded(op.hup.T, (self.dup, self.dup))
-        self.hdw = padded(op.hdw, (self.ddp, self.ddp))
+        f32 = dict(dtype=torch.float32, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        self.d = torch.as_tensor(op.d.reshape(dd, du), **f32).contiguous()
+        up_idx, up_val = ell_table(op.hup)
+        dw_idx, dw_val = ell_table(op.hdw)
+        self.up_idx = torch.as_tensor(up_idx, **i32)
+        self.up_val = torch.as_tensor(up_val, **f32)
+        self.dw_idx = torch.as_tensor(dw_idx, **i32)
+        self.dw_val = torch.as_tensor(dw_val, **f32)
         self.nl = NonLocal(
             op, lambda x: torch.as_tensor(np.ascontiguousarray(x),
                                           dtype=torch.float32, device=device),
             lambda x: torch.as_tensor(np.asarray(x, np.int64), device=device))
 
-    def pad(self, v: torch.Tensor) -> torch.Tensor:
-        vp = torch.zeros(self.ddp, self.dup, dtype=torch.float32,
-                         device=v.device)
-        vp[:self.dd0, :self.du0] = v.reshape(self.dd0, self.du0)
-        return vp
+    def tables(self):
+        """The kernel's operands after V: D and the two ELL tables."""
+        return self.d, self.up_idx, self.up_val, self.dw_idx, self.dw_val
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
-        out = kron_matvec_tiles(self.pad(v), self.d, self.hup_t, self.hdw)
-        out = out[:self.dd0, :self.du0].contiguous()
-        self.nl.add_to(out.view(1, self.dd0, self.du0),
-                       v.reshape(1, self.dd0, self.du0).to(torch.float32))
+        v2 = v.reshape(self.dd, self.du).to(torch.float32).contiguous()
+        out = kron_matvec_tiles(v2, *self.tables())
+        self.nl.add_to(out.view(1, self.dd, self.du),
+                       v2.view(1, self.dd, self.du))
         return out.reshape(-1)

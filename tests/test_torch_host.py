@@ -18,7 +18,8 @@ from edipack_tpu.umatrix import build_umatrix as j_umatrix
 from edipack_tpu_torch.bath.dmft_bath import bath_to_array, init_bath
 from edipack_tpu_torch.convert import bath_from_array, config_from_jax
 from edipack_tpu_torch.models.normal import build_normal_sector_op
-from edipack_tpu_torch.ops.fused_normal import build_fused_normal
+from edipack_tpu_torch.ops.fused_normal import (_block_compact,
+                                                build_fused_normal, ell_table)
 from edipack_tpu_torch.sectors import SectorTable
 from edipack_tpu_torch.umatrix import build_umatrix
 
@@ -115,15 +116,71 @@ def test_fused_metadata(kw, qn):
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     assert [dataclasses.astuple(r) for r in jf.nl_runs] == \
         [dataclasses.astuple(r) for r in f.nl_runs]
-    # the f64 blocks are the exact values behind the f32 (hi) tables
-    assert f.up_vals64.dtype == np.float64
-    assert np.array_equal(f.up_vals64.astype(np.float32), f.up_vals)
-    assert np.array_equal(f.dw_vals64.astype(np.float32), f.dw_vals)
-    # ... and equal the TPU package's hi + lo reconstruction to its precision
-    for v64, hi, lo in ((f.up_vals64, jf.up_vals, jf.up_vals_lo),
-                        (f.dw_vals64, jf.dw_vals, jf.dw_vals_lo)):
-        ds = hi.astype(np.float64) + lo.astype(np.float64)
+    # the f64 kernel's ELL tables hold the permuted factors exactly; their
+    # f64 blocks are the exact values behind the f32 (hi) tables ...
+    for idx, val, h, vals, lo in (
+            (f.up_ell_idx, f.up_ell_val,
+             _permuted(op.hup, f.perm_up, f.dup), f.up_vals, jf.up_vals_lo),
+            (f.dw_ell_idx, f.dw_ell_val,
+             _permuted(op.hdw, f.perm_dw, f.ddp), f.dw_vals, jf.dw_vals_lo)):
+        assert val.dtype == np.float64 and idx.dtype == np.int32
+        assert np.array_equal(_ell_dense(idx, val), h)
+        v64, _, _ = _block_compact(h.T)
+        assert np.array_equal(v64.astype(np.float32), vals)
+        # ... and equal the TPU package's hi + lo reconstruction to its
+        # precision
+        ds = vals.astype(np.float64) + lo.astype(np.float64)
         assert np.abs(v64 - ds).max() <= 1e-13 * max(np.abs(v64).max(), 1.0)
+
+
+def _permuted(h, perm, n):
+    """The factor in the imp-MSB order, zero-padded to n."""
+    out = np.zeros((n, n))
+    out[:len(perm), :len(perm)] = h[np.ix_(perm, perm)]
+    return out
+
+
+def _ell_dense(idx, val):
+    n = idx.shape[1]
+    h = np.zeros((n, n), val.dtype)
+    np.add.at(h, (np.broadcast_to(np.arange(n), idx.shape), idx), val)
+    return h
+
+
+def _random_sparse(n, seed):
+    """A square matrix with empty rows, a full row and 0-3 entries
+    elsewhere."""
+    rng = np.random.default_rng(seed)
+    h = np.zeros((n, n))
+    for i in range(n):
+        cols = rng.choice(n, size=rng.integers(0, 4), replace=False)
+        h[i, cols] = rng.normal(size=len(cols))
+    h[[0, 5]] = 0.0
+    h[7] = rng.normal(size=n)
+    return h
+
+
+@pytest.mark.parametrize("case", ["up", "dw", "random", "empty"])
+def test_ell_table(case):
+    """ell_table rebuilds its matrix exactly: width is the largest row
+    count, a row's nonzeros fill its first slots in column order, and the
+    empty slots (whole empty rows too) hold 0 and the row's own index."""
+    if case in ("up", "dw"):
+        _, op, _, cfg = _pair(dict(norb=2, nbath=4, nspin=1, **KANAMORI),
+                              (5, 4))
+        h = op.hup if case == "up" else op.hdw
+    else:
+        h = _random_sparse(37, 3) if case == "random" else np.zeros((9, 9))
+    idx, val = ell_table(h)
+    counts = np.count_nonzero(h, axis=1)
+    assert idx.shape == val.shape == (max(counts.max(), 1), h.shape[0])
+    assert np.array_equal(_ell_dense(idx, val), h)
+    rows = np.broadcast_to(np.arange(h.shape[0]), idx.shape)
+    filled = np.arange(idx.shape[0])[:, None] < counts[None, :]
+    assert np.array_equal(val != 0, filled)
+    assert np.array_equal(idx[~filled], rows[~filled])
+    assert np.all(np.diff(np.where(filled, idx, h.shape[0]), axis=0)[
+        filled[1:]] > 0)
 
 
 def test_convert_roundtrip():

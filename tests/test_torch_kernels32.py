@@ -6,9 +6,10 @@ kernels B2, B3 and B4) against edipack_tpu's on the same inputs:
   3e-6 (tests/test_fused.py's bound for 'highest');
 * B3, the chained power steps, against the oracle's power loop, norms and
   the final normalized vector at 1e-5 (tests/test_fused.py);
-* B4, the dense-tile Kron operator, against the TPU package's
-  KronPallasMatvec (interpret mode) and f32 KronMatvec at atol 1e-4
-  (tests/test_pallas_kron.py).
+* B4, the Kron operator (a sparse row-gather kernel on ELL tables of the
+  hop factors, unpadded), against the TPU package's KronPallasMatvec
+  (interpret mode) and f32 KronMatvec, and its ELL plain version against
+  the dense formula, at atol 1e-4 (tests/test_pallas_kron.py).
 
 The CUDA kernels themselves are held to these plain versions on the card
 (the tests marked ``cuda``, and chip_smoke.py)."""
@@ -94,6 +95,9 @@ def test_b2_operands_are_the_tpu_f32_tables(fused32):
     assert np.array_equal(ops.dw_vals.numpy(), jf.dw_vals)
     assert np.array_equal(ops.diag_a.numpy(), jf.diag_a)
     assert np.array_equal(ops.diag_b.numpy(), jf.diag_b)
+    # the kernel reads them row-major, whatever the host arrays' strides
+    assert all(t.is_contiguous() for t in (ops.up_vals, ops.dw_vals,
+                                           ops.diag_a, ops.diag_b))
 
 
 def test_b2_plain_vs_jax_oracle(fused32):
@@ -179,7 +183,8 @@ def test_b4_plain_vs_jax_pallas_and_kron(kron_sector):
         want_pallas = np.asarray(KronPallasMatvec(jop)(jnp.asarray(v)))
     want_kron = np.asarray(JKron(jop, dtype=jnp.float32)(jnp.asarray(v)))
     mv = kt.KronTileMatvec(op, CPU)
-    assert (mv.ddp, mv.dup, mv.dim) == (128, 128, op.sector.dim)
+    assert (mv.dd, mv.du) == (op.hdw.shape[0], op.hup.shape[0])
+    assert mv.dd * mv.du == mv.dim == op.sector.dim and mv.dd % 128
     assert mv.dtype == torch.float32 and mv.nnz == op.nnz_estimate()
     before = kt.launches
     got = mv(torch.as_tensor(v))
@@ -189,19 +194,42 @@ def test_b4_plain_vs_jax_pallas_and_kron(kron_sector):
     assert np.abs(got.numpy() - want_kron).max() <= ATOL_B4
 
 
+@pytest.mark.parametrize("case", ["kron", "fused"])
+def test_b4_ell_plain_vs_dense(case, kron_sector):
+    """B4's ELL plain version (what the wrapper runs on the CPU) against
+    the dense formula, at the (3,2) sector and at the nbath=4 (5,4) one."""
+    op = kron_sector[1] if case == "kron" else _ops(*FUSED)[1]
+    mv = kt.KronTileMatvec(op, CPU)
+    v = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(mv.dd, mv.du)).astype(np.float32))
+    hup_t = torch.as_tensor(np.asarray(op.hup).T, dtype=torch.float32)
+    hdw = torch.as_tensor(np.asarray(op.hdw), dtype=torch.float32)
+    assert mv.up_idx.shape == (np.count_nonzero(op.hup, 1).max(), mv.du)
+    before = kt.launches
+    got = kt.kron_matvec_tiles(v, *mv.tables())
+    assert kt.launches == before
+    assert torch.equal(got, fm.ell_matvec_plain(v, *mv.tables()))
+    want = kt.kron_matvec_tiles_plain(v, mv.d, hup_t, hdw)
+    assert (got - want).abs().max() <= ATOL_B4
+
+
 def test_b4_wrapper_checks(kron_sector):
     _, op, _ = kron_sector
     mv = kt.KronTileMatvec(op, CPU)
-    v = torch.zeros(128, 128)
+    d, up_idx, up_val, dw_idx, dw_val = mv.tables()
+    v = torch.zeros(mv.dd, mv.du)
     with pytest.raises(TypeError):
-        kt.kron_matvec_tiles(v.double(), mv.d, mv.hup_t, mv.hdw)
+        kt.kron_matvec_tiles(v.double(), *mv.tables())
+    with pytest.raises(TypeError):
+        kt.kron_matvec_tiles(v, d, up_idx.long(), up_val, dw_idx, dw_val)
     with pytest.raises(ValueError):
-        kt.kron_matvec_tiles(v[:64], mv.d[:64], mv.hup_t, mv.hdw[:64, :64])
+        kt.kron_matvec_tiles(v[:-1], d[:-1], up_idx, up_val, dw_idx, dw_val)
     with pytest.raises(ValueError):
-        kt.kron_matvec_tiles(v.t(), mv.d, mv.hup_t, mv.hdw)
-    out = kt.kron_matvec_tiles(mv.d, mv.d, mv.hup_t, mv.hdw)
-    assert torch.equal(out, kt.kron_matvec_tiles_plain(mv.d, mv.d, mv.hup_t,
-                                                       mv.hdw))
+        kt.kron_matvec_tiles(v.reshape(-1), *mv.tables())
+    with pytest.raises(ValueError):
+        kt.kron_matvec_tiles(v.t().contiguous().t(), *mv.tables())
+    out = kt.kron_matvec_tiles(d, *mv.tables())
+    assert torch.equal(out, fm.ell_matvec_plain(d, *mv.tables()))
 
 
 def _card():
@@ -242,13 +270,19 @@ def test_b3_kernel_vs_plain_on_card(fused32):
 
 @pytest.mark.cuda
 def test_b4_kernel_vs_plain_on_card(kron_sector):
+    """B4 on its ragged (15, 20) layout against its ELL plain version and
+    the dense formula."""
     dev = _card()
     _, op, v = kron_sector
     mv = kt.KronTileMatvec(op, dev)
-    vp = mv.pad(torch.as_tensor(v, device=dev))
+    v2 = torch.as_tensor(v, device=dev).view(mv.dd, mv.du)
     before = kt.launches
-    out = kt.kron_matvec_tiles(vp, mv.d, mv.hup_t, mv.hdw)
+    out = kt.kron_matvec_tiles(v2, *mv.tables())
     torch.cuda.synchronize()
     assert kt.launches == before + 1
-    ref = kt.kron_matvec_tiles_plain(vp, mv.d, mv.hup_t, mv.hdw)
+    ref = fm.ell_matvec_plain(v2, *mv.tables())
+    dense = kt.kron_matvec_tiles_plain(
+        v2, mv.d, torch.as_tensor(op.hup.T, dtype=torch.float32, device=dev),
+        torch.as_tensor(op.hdw, dtype=torch.float32, device=dev))
     assert (out - ref).abs().max() <= ATOL_B4
+    assert (out - dense).abs().max() <= ATOL_B4

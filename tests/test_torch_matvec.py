@@ -1,7 +1,10 @@
 """edipack_tpu_torch's sector matvecs against edipack_tpu's: the dense-factor
 KronMatvec, and the fused operator's plain PyTorch version (the CPU side of
 the CUDA kernel) against the TPU package's NumPy oracle and f64 KronMatvec.
-The kernel itself is compared with the plain version on the card."""
+For float64 the plain version reads the ELL tables the kernel reads (B1,
+the sparse row-gather kernel); it is also held to the block-table plain
+version that B2 keeps. The kernel itself is compared with the plain version
+on the card."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -19,7 +22,9 @@ from edipack_tpu.umatrix import build_umatrix as j_umatrix
 
 from edipack_tpu_torch.models.normal import build_normal_sector_op
 from edipack_tpu_torch.ops import fused_matvec as fm
-from edipack_tpu_torch.ops.fused_normal import build_fused_normal
+from edipack_tpu_torch.ops import _build
+from edipack_tpu_torch.ops.fused_normal import (_block_compact,
+                                                build_fused_normal)
 from edipack_tpu_torch.ops.matvec import KronMatvec
 from edipack_tpu_torch.sectors import SectorTable
 from edipack_tpu_torch.umatrix import build_umatrix
@@ -125,6 +130,58 @@ def test_fused_plain_vs_jax_oracle(fused):
     assert _rel(jf.from_blocked(out.numpy()), ref) <= 1e-12
 
 
+@pytest.mark.parametrize("case", ["fused", "kanamori"])
+def test_fused_ell_plain_vs_block_plain(case, fused):
+    """B1's ELL plain version against the block products (B2's plain
+    version) fed the same f64 values."""
+    if case == "fused":
+        jop, _, mv = fused
+        fop = mv.fop
+    else:
+        jop, op, jcfg = _ops(*SECTORS["kanamori"])
+        fop = build_fused_normal(op, jcfg.norb)
+        mv = fm.FusedKron(fop, CPU)
+    blk = fm.FusedOperands(fop, CPU, torch.float32)
+    for name, h, perm, n in (("up_vals", jop.hup, fop.perm_up, fop.dup),
+                             ("dw_vals", jop.hdw, fop.perm_dw, fop.ddp)):
+        hp = np.zeros((n, n))
+        hp[:len(perm), :len(perm)] = np.asarray(h)[np.ix_(perm, perm)]
+        setattr(blk, name, torch.as_tensor(_block_compact(hp.T)[0]))
+    blk.diag_a = torch.as_tensor(fop.diag_a64)
+    blk.diag_b = torch.as_tensor(fop.diag_b64)
+    blk.runs_v = blk.runs_v.double()
+    v = torch.as_tensor(np.random.default_rng(8).normal(size=fop.dd * fop.du))
+    v3 = mv.to_internal_flat(v).view(-1, 128)
+    out = fm.fused_matvec_plain(v3, mv.ops)
+    assert _rel(out.numpy(), fm.block_matvec_plain(v3, blk).numpy()) <= 1e-13
+
+
+def test_fused_f64_cpu_takes_ell_plain(fused, monkeypatch):
+    """A float64 CPU tensor goes through the ELL plain version: no kernel
+    build, no launch, no block products."""
+    _, _, mv = fused
+
+    def refuse(*a, **k):
+        raise AssertionError("not on this path")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(fm, "block_matvec_plain", refuse)
+    v3 = mv.v0_project(torch.as_tensor(
+        np.random.default_rng(9).normal(size=mv.dim))).view(-1, 128)
+    before = fm.launches
+    out = fm.fused_matvec(v3, mv.ops)
+    assert fm.launches == before and out.dtype == torch.float64
+    v2 = v3.view(mv.nbu, mv.ddp, 128).permute(1, 0, 2).reshape(mv.ddp, -1)
+    w2 = fm.ell_matvec_plain(v2, mv.ops.diag_a @ mv.ops.diag_b.T,
+                             mv.ops.up_idx, mv.ops.up_val, mv.ops.dw_idx,
+                             mv.ops.dw_val)
+    for rn in mv.ops.runs:
+        w2[rn.dd0:rn.dd0 + rn.ld, rn.du0:rn.du0 + rn.lu] += \
+            rn.val * v2[rn.sd0:rn.sd0 + rn.ld, rn.su0:rn.su0 + rn.lu]
+    assert torch.equal(out, w2.view(mv.ddp, mv.nbu, 128).permute(1, 0, 2)
+                       .reshape(-1, 128))
+
+
 def test_fused_plain_vs_jax_kron(fused):
     jop, jf, mv = fused
     v = np.random.default_rng(4).normal(size=jf.dd * jf.du)
@@ -158,6 +215,7 @@ def test_fused_wrapper_checks(fused):
 
 @pytest.mark.cuda
 def test_fused_kernel_vs_plain_on_card(fused):
+    """B1 against its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (the kernel has no CPU mode)")
     _, jf, mv_cpu = fused
