@@ -12,13 +12,15 @@ non-zero on any fault):
           for all four, dense GEMMs for B4 too), each timed twice: with the
           50 MB L2 flushed before every launch (a 128 MB scratch write; the
           report's times) and back to back:
-          B1 (f64 sparse row-gather fused matvec) and B2 (f32 dense-tile) at
-          config 2's (7,7) sector and the nbath=4 (5,4) sector, B2 also
-          against B1; B3 (chained f32 power steps) at (7,7), niter=8
-          against the plain loop, then the power-step entry at niter=100,
-          timed per step; B4 (f32 sparse row-gather Kron) at (7,7) and the
-          nbath=2 (3,2) sector, against its plain version, the dense
-          formula and f32 KronMatvec
+          B1 (f64) and B2 (f32), the sparse row-gather fused matvec, at
+          config 2's (7,7) sector, the nbath=4 (5,4) sector and the
+          nbath=7 (6,1) sector (8008 up states: 3 rows a block in f64, 7
+          in f32, so the last of its 128 padded rows' blocks is short), B2
+          also against B1; B3 (chained f32 power steps) at (7,7) and
+          (6,1), niter=8 against the plain loop, then the
+          power-step entry at niter=100, timed per step; B4 (f32 sparse
+          row-gather Kron) at (7,7) and the nbath=2 (3,2) sector, against
+          its plain version, the dense formula and f32 KronMatvec
   golden  ed_solve at norb=2, nbath=4 through the fused kernels, f64 (B1)
           and f32 (B2, twin sectors on), vs the edipack_tpu reference
           numbers in tests/data/ (the f32 solve also vs the f64 numbers of
@@ -27,7 +29,12 @@ non-zero on any fault):
           ed_set_hloc -> ed_solve on the card, cold, in f64 (B1) and in f32
           (B2); the f64 ground-state sector's e0 re-derived through
           KronMatvec; the (7,7) sector's lowest level through Lanczos on the
-          row-gather Kron operator (B4) against the f64 solve's
+          row-gather Kron operator (B4) against the f64 solve's; the
+          states the f32 solve keeps against those the f64 solve keeps
+          (as many in each sector, none a copy of another, each energy
+          within E0_F32_RTOL), and its G (on the BETA_GRID frequencies),
+          densities, double occupancies and energies against the f64
+          solve's at TOL_F32_EXACT
 
 Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
 power-step entry for B3, the row-gather Lanczos for B4) runs with every
@@ -38,8 +45,8 @@ run: ``launches`` from those paths, ``max_abs_err``, ``ms`` (L2 flushed),
 yardsticks, named by ``library_call``) from the kernel phase at config 2's
 (7,7) sector (B3: per power step), ``bound_ms`` computed from those inputs:
 the function's work on this data (two operations per nonzero of the
-sector's H) against its bytes (B1, B4: V, the output and the ELL tables
-they read; B2, B3: the 128x128 factor blocks they read). B3's ``launches``
+sector's H) against its bytes (V, the output and the ELL tables the
+kernel reads). B3's ``launches``
 counts kernel launches, two per power step. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside the repository,
 the script fails before printing any result.
@@ -77,9 +84,16 @@ TOL_F32_EXACT = dict(e0=3e-5, dens=1e-5, docc=1e-5, energies=1e-5, gimp=1e-4,
                      sigma=1e-3)
 TOL_F32 = dict(TOL_F32_EXACT, e0=3.3e-4, gimp=2.4e-4)
 E0_F32_RTOL = 1e-5        # config 2: f32 e0 vs f64 e0, relative
+# Matsubara grid on which config 2's f32 G is held to its f64 G at
+# TOL_F32_EXACT, as the f32 golden file's (tests/test_torch_f32.py): on the
+# solve's own grid (beta = 1000) the lowest frequencies magnify the f32
+# error of the low excitation energies
+BETA_GRID = 20.0
 NMATS = 32
 DEVICE = "cuda"
 POWER_NITER = 100
+# kept states of one sector: a copy overlaps its original by 1
+KEPT_OVERLAP = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, 700 W): FP64 tensor core and FP32
 # 67 TFLOP/s, HBM3 3.35 TB/s
 PEAK_FLOPS = {"f64": 67e12, "f32": 67e12}
@@ -163,27 +177,19 @@ def bound(flops: float, nbytes: float, kind: str) -> dict:
                 gflop=flops * 1e-9, mbytes=nbytes * 1e-6)
 
 
-def fused_bound(fop, kind: str, tables: str, extra_flops: float = 0.0
-                ) -> dict:
+def fused_bound(fop, kind: str, extra_flops: float = 0.0) -> dict:
     """One fused matvec of this sector as the function it computes: two
     operations per nonzero of H (``fop.nnz``: the diagonal, both hop
     factors and the Jx/Jp terms) and the diagonal's rank-8 products; V3
-    read once, W3 written once, the diagonal factors, the runs and the
-    kernel's factor tables read once: ``tables="ell"`` the ELL tables B1
-    reads, ``"blocks"`` the 128x128 factor blocks B2 and B3 read (and B1
-    read before its redesign)."""
-    from edipack_tpu_torch.ops.fused_normal import BLK, DIAG_RANK
+    read once, W3 written once, the diagonal factors, the runs and the ELL
+    tables of the hop factors read once."""
+    from edipack_tpu_torch.ops.fused_normal import DIAG_RANK
     es = 8 if kind == "f64" else 4
     n = fop.ddp * fop.dup
     flops = 2 * fop.nnz + 2 * DIAG_RANK * fop.dd * fop.du + extra_flops
-    nbytes = es * (2 * n + (fop.ddp + fop.dup) * DIAG_RANK)
-    if tables == "ell":
-        nbytes += ((es + 4) * (fop.up_ell_idx.size + fop.dw_ell_idx.size)
-                   + (4 * 6 + es) * len(fop.nl_runs))
-    else:
-        nblk = len(fop.up_src) + len(fop.dw_src)
-        nbytes += (es * nblk * BLK * BLK
-                   + 4 * (2 * nblk + fop.ddp // BLK + fop.dup // BLK + 2))
+    nbytes = (es * (2 * n + (fop.ddp + fop.dup) * DIAG_RANK)
+              + (es + 4) * (fop.up_ell_idx.size + fop.dw_ell_idx.size)
+              + (4 * 6 + es) * len(fop.nl_runs))
     return bound(flops, nbytes, kind)
 
 
@@ -198,16 +204,6 @@ def kron_bound(mv) -> dict:
                   + int(torch.count_nonzero(mv.dw_val)) * mv.du) + 3 * n)
     nbytes = 4 * 3 * n + 8 * (mv.up_idx.numel() + mv.dw_idx.numel())
     return bound(flops, nbytes, "f32")
-
-
-def kron_bound_dense(mv) -> dict:
-    """The same function's bound as counted for the earlier dense-tile
-    kernel: V, D and the output on the 128-padded layout, the dense
-    factors Hupᵀ and Hdw read once."""
-    ddp, dup = -(-mv.dd // 128) * 128, -(-mv.du // 128) * 128
-    b = kron_bound(mv)
-    return bound(b["gflop"] * 1e9,
-                 4 * (3 * ddp * dup + ddp * ddp + dup * dup), "f32")
 
 
 def csr_yardstick(op, dtype):
@@ -266,7 +262,9 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
     from edipack_tpu_torch.ops.fused_normal import build_fused_normal
     from edipack_tpu_torch.ops.matvec import KronMatvec
     dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
     fop = build_fused_normal(op, norb)
+    host_s = time.perf_counter() - t0
     if fop is None:
         fail(f"{label}: build_fused_normal returned None")
     mv64 = fm.FusedKron(fop, dev)
@@ -277,9 +275,8 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
     v32 = v64.float()
     print(f"[kernel] {label}: dim {fop.dd}x{fop.du} (padded "
           f"{fop.ddp}x{fop.dup}), nnz {fop.nnz:.4e}, ELL widths up "
-          f"{fop.up_ell_idx.shape[0]} dw {fop.dw_ell_idx.shape[0]}, up blocks "
-          f"{len(fop.up_src)}, dw blocks {len(fop.dw_src)}, runs "
-          f"{len(fop.nl_runs)}")
+          f"{fop.up_ell_idx.shape[0]} dw {fop.dw_ell_idx.shape[0]}, runs "
+          f"{len(fop.nl_runs)}; host build_fused_normal {host_s:.3f} s")
     # B1 against its plain version and the dense-factor operator
     out64 = fm.fused_matvec(v64, mv64.ops)
     ref64 = fm.fused_matvec_plain(v64, mv64.ops)
@@ -309,9 +306,8 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
     timed(times, "b2_plain", lambda: fm.fused_matvec_plain(v32, mv32.ops))
     timed(times, "b2_csr", lambda: lib32(x32))
     timed(times, "kron32", lambda: kron32(v_orig32))
-    b1b = fused_bound(fop, "f64", "ell")
-    b1old = fused_bound(fop, "f64", "blocks")
-    b2b = fused_bound(fop, "f32", "blocks")
+    b1b = fused_bound(fop, "f64")
+    b2b = fused_bound(fop, "f32")
     print(f"[kernel]   B1 vs plain: "
           f"max_abs_err {err64:.3e}, rel {rel64:.3e} (limit {KERNEL_RTOL}); "
           f"vs KronMatvec rel {rel_k:.3e}")
@@ -324,11 +320,9 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
         print(f"[kernel]   {name:9s} {t:11.4f} {t2:16.4f}  "
               f"{fop.nnz / t * 1e-6:8.3f}")
     print(f"[kernel]   bound: B1 {b1b['bound_ms']:.4f} ms ({b1b['bound_by']}, "
-          f"{b1b['gflop']:.3f} GFLOP, {b1b['mbytes']:.1f} MB with its ELL "
-          f"tables; with the dense-tile factor blocks "
-          f"{b1old['bound_ms']:.4f} ms, {b1old['mbytes']:.1f} MB), B2 "
-          f"{b2b['bound_ms']:.4f} ms "
-          f"({b2b['bound_by']}, {b2b['mbytes']:.1f} MB)")
+          f"{b1b['gflop']:.3f} GFLOP, {b1b['mbytes']:.1f} MB), B2 "
+          f"{b2b['bound_ms']:.4f} ms ({b2b['bound_by']}, {b2b['mbytes']:.1f} "
+          f"MB), with the ELL tables")
     if not (rel64 <= KERNEL_RTOL and rel_k <= KERNEL_RTOL):
         fail(f"{label}: B1 disagrees (rel {rel64:.3e}, vs Kron {rel_k:.3e})")
     if not (rel32 <= F32_RTOL and rel32_b1 <= F32_RTOL):
@@ -336,32 +330,52 @@ def _fused_shape(report: dict, label: str, op, norb: int) -> None:
              f"{rel32_b1:.3e})")
     report.setdefault("fused", []).append(dict(
         label=label, fop=fop, err64=err64, err32=err32, bound64=b1b,
-        bound64_blocks=b1old, bound32=b2b, **times))
+        bound32=b2b, **times))
 
 
-def _power(report: dict, fop, op) -> None:
-    """B3 at config 2's (7,7): the kernel against the plain loop, then the
-    power-step entry (bench.py's niter=100) timed per step."""
+def _power_vector(fop):
+    """A padded f32 start vector on the sector's column-blocked layout."""
+    import torch
+    v = np.random.default_rng(0).standard_normal(
+        (fop.ddp, fop.dup)).astype(np.float32)
+    v[fop.dd:, :] = 0
+    v[:, fop.du:] = 0
+    return torch.as_tensor(fop.to_blocked(v), device=DEVICE)
+
+
+def _power_check(label: str, fop) -> list:
+    """B3 at one sector, niter=8, against the plain loop: the norms and the
+    final normalized vector. Returns the absolute errors."""
+    import torch
+    from edipack_tpu_torch.ops import fused_matvec as fm
+    v3 = _power_vector(fop)
+    ops = fm.FusedOperands(fop, torch.device(DEVICE), torch.float32)
+    w_ref, n_ref = fm.fused_power_plain(v3, ops, 8)
+    unit = lambda w: w / torch.linalg.norm(w)
+    w3, norms = fm.fused_power(v3, ops, 8)
+    torch.cuda.synchronize()
+    rel_n = float(((norms - n_ref).abs() / n_ref).max())
+    err_v = float((unit(w3) - unit(w_ref)).abs().max())
+    print(f"[kernel] B3 {label} niter=8: norms rel {rel_n:.3e}, final vector "
+          f"{err_v:.3e} (limit {POWER_TOL}); norms {norms[:3].tolist()} ...")
+    if not (rel_n <= POWER_TOL and err_v <= POWER_TOL):
+        fail(f"B3 {label} disagrees (norms {rel_n:.3e}, vector "
+             f"{err_v:.3e})")
+    return [float((w3 - w_ref).abs().max()),
+            float((norms - n_ref).abs().max())]
+
+
+def _power(report: dict, fop, op, wide) -> None:
+    """B3 against the plain loop at config 2's (7,7) and at the wide
+    sector ``wide`` (a short last row block), then the power-step entry
+    (bench.py's niter=100) at (7,7) timed per step."""
     import torch
     from edipack_tpu_torch.ops import fused_matvec as fm
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(0)
-    v = rng.standard_normal((fop.ddp, fop.dup)).astype(np.float32)
-    v[fop.dd:, :] = 0
-    v[:, fop.du:] = 0
-    v3 = torch.as_tensor(fop.to_blocked(v), device=dev)
+    errs = _power_check("(7,7) config 2", fop) \
+        + _power_check("(6,1) nbath=7", wide)
+    v3 = _power_vector(fop)
     ops = fm.FusedOperands(fop, dev, torch.float32)
-    w3, norms = fm.fused_power(v3, ops, 8)
-    w_ref, n_ref = fm.fused_power_plain(v3, ops, 8)
-    torch.cuda.synchronize()
-    rel_n = float(((norms - n_ref).abs() / n_ref).max())
-    unit = lambda w: w / torch.linalg.norm(w)
-    err_v = float((unit(w3) - unit(w_ref)).abs().max())
-    err_w = float((w3 - w_ref).abs().max())
-    print(f"[kernel] B3 (7,7) niter=8: norms rel {rel_n:.3e}, final vector "
-          f"{err_v:.3e} (limit {POWER_TOL}); norms {norms[:3].tolist()} ...")
-    if not (rel_n <= POWER_TOL and err_v <= POWER_TOL):
-        fail(f"B3 disagrees (norms {rel_n:.3e}, vector {err_v:.3e})")
     plain_step = cuda_ms(lambda: fm.fused_power_plain(v3, ops, 8), reps=5,
                          flush=True) / 8
     lib, x = csr_yardstick(op, torch.float32)
@@ -380,7 +394,7 @@ def _power(report: dict, fop, op) -> None:
     step_b2b = cuda_ms(lambda: power(v3), reps=3, warm=0) / POWER_NITER
     counts = read_counts()
     step = cuda_ms(lambda: power(v3), reps=3, warm=0, flush=True) / POWER_NITER
-    b = fused_bound(fop, "f32", "blocks", extra_flops=3 * fop.ddp * fop.dup)
+    b = fused_bound(fop, "f32", extra_flops=3 * fop.ddp * fop.dup)
     print(f"[kernel] B3 power-step entry, niter={POWER_NITER}: {step:.4f} ms "
           f"per step flushed before each call, {step_b2b:.4f} ms back to back "
           f"({fop.nnz / step * 1e-6:.3f} Gnnz/s), plain {plain_step:.4f} ms "
@@ -389,7 +403,7 @@ def _power(report: dict, fop, op) -> None:
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}); launches {counts}")
     if counts["B3"] <= 0:
         fail("the power-step entry did not launch B3")
-    report["power"] = dict(err=max(err_w, float((norms - n_ref).abs().max())),
+    report["power"] = dict(err=max(errs),
                            ms=step, ms_b2b=step_b2b, plain_ms=plain_step,
                            csr=lib_ms["csr"], bound=b, launches=counts["B3"])
 
@@ -431,7 +445,6 @@ def _kron_tiles(report: dict, label: str, op, strict_rel: bool) -> None:
     timed(times, "operator", lambda: mv(v))
     timed(times, "kron32", lambda: kron32(v))
     b = kron_bound(mv)
-    bold = kron_bound_dense(mv)
     print(f"[kernel] B4 {label}: {mv.dd}x{mv.du}, ELL widths up "
           f"{mv.up_idx.shape[0]} dw {mv.dw_idx.shape[0]}; vs plain max_abs_err "
           f"{err:.3e} rel {rel:.3e}; vs "
@@ -445,23 +458,25 @@ def _kron_tiles(report: dict, label: str, op, strict_rel: bool) -> None:
               f"{times[name + '_b2b']:16.4f}")
     print(f"[kernel]   bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
           f"{b['gflop']:.3f} GFLOP, {b['mbytes']:.1f} MB with the ELL "
-          f"tables; counted with the padded dense factors "
-          f"{bold['bound_ms']:.4f} ms, {bold['mbytes']:.1f} MB)")
+          f"tables)")
     ok = (max(rel, rel_d, rel_k) <= KRON_RTOL) if strict_rel \
         else (max(err, err_d, err_k) <= KRON_ATOL)
     if not ok:
         fail(f"B4 {label} disagrees (rel {rel:.3e} / {rel_d:.3e} / "
              f"{rel_k:.3e}, abs {err:.3e} / {err_d:.3e} / {err_k:.3e})")
     report.setdefault("kron", []).append(dict(label=label, err=err, bound=b,
-                                              bound_dense=bold, **times))
+                                              **times))
 
 
 def phase_kernel(report: dict) -> None:
     from edipack_tpu_torch.ops.fused_normal import build_fused_normal
     op77 = sector_op(2, 6, 7, 7)
+    op61 = sector_op(2, 7, 6, 1)
     _fused_shape(report, "(7,7) config 2", op77, 2)
     _fused_shape(report, "(5,4) nbath=4", sector_op(2, 4, 5, 4), 2)
-    _power(report, build_fused_normal(op77, 2), op77)
+    _fused_shape(report, "(6,1) nbath=7", op61, 2)
+    _power(report, build_fused_normal(op77, 2), op77,
+           build_fused_normal(op61, 2))
     _kron_tiles(report, "(7,7) config 2", op77, strict_rel=True)
     _kron_tiles(report, "(3,2) nbath=2",
                 sector_op(2, 2, 3, 2, KRON_SMALL,
@@ -542,8 +557,16 @@ def _solve_once(label: str, cfg, bath):
     print(f"[solve] {label}: wall {wall:.2f} s, phases "
           + ", ".join(f"{k} {v:.2f} s" for k, v in res.timings.items()))
     stats = res.diag.lanczos_stats.values()
-    print(f"[solve]   e0 {res.e0:.12f}  states {len(res.evals)}  matvecs "
-          f"{res.n_matvecs}  kernel launches {counts}")
+    kept = [(res.table.sector(st.sector).qn[1:], f"{st.energy - res.e0:.3e}")
+            for st in res.diag.state_list.states]
+    print(f"[solve]   e0 {res.e0:.12f}  states {len(res.evals)} (sector, "
+          f"E - e0): {kept}  matvecs {res.n_matvecs}  kernel launches "
+          f"{counts}")
+    near = [(res.table.sector(i).qn[1:], [f"{e - res.e0:.3e}" for e in ev
+                                          if e - res.e0 <= 1e-3])
+            for i, ev in sorted(res.diag.evals_by_sector.items())]
+    print(f"[solve]   levels within 1e-3 of e0: "
+          f"{[n for n in near if n[1]]}")
     print(f"[solve]   Lanczos sectors {len(stats)}: restarts "
           f"{sum(r for r, _, _ in stats)}, at the restart cap "
           f"{sum(r >= c for r, c, _ in stats)}, sweep matvecs "
@@ -625,6 +648,9 @@ def phase_solve(report: dict) -> None:
     if counts["B4"] <= 0 or not rel77 <= E0_F32_RTOL:
         fail(f"B4 Lanczos: launches {counts['B4']}, rel {rel77:.3e}")
     e0_64 = res.e0
+    kept64 = {qn: sorted([(e, None) for e, _ in st], key=lambda t: t[0])
+              for qn, st in _kept(res).items()}
+    obs64 = _observables()
     ed.ed_finalize_solver()
     del res, tiles, mv
     # config 2 in f32 through ed_solve (auto: B2 for dim >= 2^17)
@@ -640,7 +666,56 @@ def phase_solve(report: dict) -> None:
         fail("config 2 f32 solve did not launch B2")
     if not rel <= E0_F32_RTOL:
         fail(f"config 2 f32 e0 off by {rel:.3e} relative")
+    _check_kept(_kept(res32), kept64, e0_64)
+    obs32 = _observables()
+    for k, ref in obs64.items():
+        dev = float(np.abs(obs32[k] - ref).max())
+        print(f"[solve]   f32 {k} vs f64: max dev {dev:.3e} (limit "
+              f"{TOL_F32_EXACT[k]})")
+        if not dev <= TOL_F32_EXACT[k]:
+            fail(f"config 2 f32 {k} off the f64 solve's by {dev:.3e}")
     ed.ed_finalize_solver()
+
+
+def _observables() -> dict:
+    import edipack_tpu_torch.main as ed
+    return dict(dens=ed.ed_get_dens(), docc=ed.ed_get_docc(),
+                energies=ed.ed_get_eimp(), gimp=ed.ed_get_gimp(_z(BETA_GRID)))
+
+
+def _kept(res) -> dict:
+    """The kept states by sector: {qn: [(energy, vector), ...]}."""
+    out: dict = {}
+    for st in res.diag.state_list.states:
+        out.setdefault(res.table.sector(st.sector).qn, []).append(
+            (st.energy, st.vector))
+    return out
+
+
+def _check_kept(kept32: dict, kept64: dict, e0_64: float) -> None:
+    """The f32 solve's kept states against the f64 solve's: as many in
+    each sector, the states of one sector overlapping by at most
+    KEPT_OVERLAP, and each energy within E0_F32_RTOL of the f64 energy of
+    the same rank in its sector."""
+    worst_e, worst_o = 0.0, 0.0
+    for qn in set(kept32) | set(kept64):
+        states, ref = kept32.get(qn, []), kept64.get(qn, [])
+        if len(states) != len(ref):
+            fail(f"config 2 f32 keeps {len(states)} states in {qn}, the f64 "
+                 f"solve {len(ref)}")
+        for (e, _), (e64, _) in zip(sorted(states, key=lambda t: t[0]), ref):
+            worst_e = max(worst_e, abs(e - e64) / abs(e0_64))
+        vecs = [v.double() for _, v in states]
+        for i in range(len(vecs)):
+            for j in range(i):
+                worst_o = max(worst_o, abs(float(vecs[i] @ vecs[j])))
+    print(f"[solve]   f32 kept states vs f64: sectors "
+          f"{sorted(q[1:] for q in kept32)} of {sorted(q[1:] for q in kept64)}"
+          f", energies rel {worst_e:.3e} (limit {E0_F32_RTOL}), overlap "
+          f"within a sector {worst_o:.3e} (limit {KEPT_OVERLAP})")
+    if not (worst_e <= E0_F32_RTOL and worst_o <= KEPT_OVERLAP):
+        fail(f"config 2 f32 kept states: energies {worst_e:.3e}, overlap "
+             f"{worst_o:.3e}")
 
 
 def _library(pairs) -> dict:
@@ -668,7 +743,7 @@ def kernel_report(report: dict) -> list:
              bound_by=big["bound64"]["bound_by"],
              **_library([(csr.format("f64"), big["b1_csr"])])),
         dict(name="fused_normal_matvec_f32", route="cuda",
-             source=src + "fused_normal.cu",
+             source=src + "row_gather.cu",
              replaces="edipack_tpu/ops/pallas_fused.py:134",
              launches=report["B2_launches"],
              max_abs_err=max(s["err32"] for s in report["fused"]),
@@ -678,7 +753,7 @@ def kernel_report(report: dict) -> list:
              bound_by=big["bound32"]["bound_by"],
              **_library([(csr.format("f32"), big["b2_csr"])])),
         dict(name="fused_normal_power_f32", route="cuda",
-             source=src + "fused_normal.cu",
+             source=src + "row_gather.cu",
              replaces="edipack_tpu/ops/pallas_fused.py:248",
              launches=pw["launches"], max_abs_err=pw["err"],
              ms=pw["ms"], ms_back_to_back=pw["ms_b2b"],

@@ -2,9 +2,10 @@
 edipack_tpu in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The normal-mode solve (``ed_init_solver`` -> ``ed_set_hloc`` -> ``ed_solve``
-and the ``ed_get_*`` getters) runs in f64 on one explicit ``torch.device``
-(default ``"cuda"``). Large sectors apply H through the fused CUDA kernel
-``csrc/fused_normal.cu``; the rest through dense Kronecker-factor matmuls.
+and the ``ed_get_*`` getters) runs in f64 (or f32 with
+``ed_precision="float32"``) on one explicit ``torch.device`` (default
+``"cuda"``). Large sectors apply H through the sparse row-gather CUDA kernel
+``csrc/row_gather.cu``; the rest through dense Kronecker-factor matmuls.
 This package never imports ``jax`` or ``edipack_tpu``.
 """
 from .config import EDConfig, default_config, ed_read_input, get_config, set_config

@@ -19,7 +19,7 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "fused_normal.cu", _PKG / "csrc" / "row_gather.cu")
+SOURCES = (_PKG / "csrc" / "row_gather.cu",)
 BUILD_DIR = _PKG.parent / "build" / "edipack_tpu_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -52,15 +52,14 @@ def library_path() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.fused_normal_matvec_f32
-    fn.argtypes = [p] * 12 + [i] * 4 + [p]
-    fn.restype = i
+    # the fused operands, in FusedOperands.args()'s order
+    ops = [p] * 2 + [i] + [p] * 2 + [i] + [p] * 2 + [i] + [p] * 2 + [i] * 3
+    for name in ("fused_normal_matvec_f64", "fused_normal_matvec_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 2 + ops + [p]
+        fn.restype = i
     fn = lib.fused_normal_power_f32
-    fn.argtypes = [p] * 13 + [i] * 4 + [p] * 3 + [i, p]
-    fn.restype = i
-    fn = lib.fused_normal_matvec_f64
-    fn.argtypes = [p] * 4 + [i] + [p] * 2 + [i] + [p] * 2 + [i] + [p] * 2 \
-        + [i] * 3 + [p]
+    fn.argtypes = [p] * 3 + ops + [p] * 3 + [i, p]
     fn.restype = i
     fn = lib.kron_tiles_matvec_f32
     fn.argtypes = [p] * 4 + [i] + [p] * 2 + [i, p] + [i] * 2 + [p]

@@ -2,26 +2,25 @@
 and f32, and the f32 chained power steps.
 
 Counterpart of edipack_tpu.ops.pallas_fused. The TPU package has three
-kernels here; each has one CUDA counterpart, built from the same operator
-metadata (ops.fused_normal.build_fused_normal):
+kernels here, which multiply the hop factors' nonzero blocks as dense
+128×128 tiles; each has one CUDA counterpart, an instantiation of the
+sparse row-gather kernel (``csrc/row_gather.cu``) that reads ELL tables of
+the permuted hop factors (ops.fused_normal.build_fused_normal):
 
 * B1, ``FusedMatvecDS`` wrapped by ``MixedFusedKron``: the TPU kernel
-  computes H·V as double-single f32 planes as dense block products; the
-  card has native FP64, so here it is one f64 sparse row-gather kernel
-  (``csrc/row_gather.cu``) that reads ELL tables of the hop factors;
-* B2, ``FusedMatvec`` wrapped by ``FusedKron``: the same product in f32,
-  as dense 128×128 factor tiles (``csrc/fused_normal.cu``);
+  computes H·V as double-single f32 planes; the card has native FP64, so
+  here it is the f64 kernel;
+* B2, ``FusedMatvec`` wrapped by ``FusedKron``: the same product in f32;
 * B3, ``FusedPower``: ``niter`` chained steps w = H·v, v = w/‖w‖, on B2's
-  tiles.
+  pass with the scale and the sum of squares folded in.
 
 * :func:`fused_matvec` — the matvec wrapper: for a CUDA tensor it launches
   B1 (float64) or B2 (float32), or raises; it runs
   :func:`fused_matvec_plain` only for a tensor on the CPU. Each launch adds
   one to the module counter ``launches`` (B1) or ``launches_f32`` (B2).
 * :func:`fused_matvec_plain` — the same function in plain PyTorch, in the
-  operands' dtype: for float64 B1's ELL gathers, one torch gather per slot
-  (:func:`ell_matvec_plain`); for float32 B2's block products
-  (:func:`block_matvec_plain`). Both add the Jx/Jp rectangle shifts last.
+  operands' dtype: the ELL gathers, one torch gather per slot
+  (:func:`ell_matvec_plain`), then the Jx/Jp rectangle shifts.
 * :class:`FusedKron` — the solver-facing operator on flat internal vectors,
   with the original <-> internal layout conversion.
 * :class:`FusedPower` — B3; each call on the card adds its 2·niter kernel
@@ -36,7 +35,7 @@ import torch
 
 from ..device import DTYPE
 from . import _build
-from .fused_normal import BLK, DIAG_RANK, FusedNormalOp
+from .fused_normal import BLK, FusedNormalOp
 
 launches = 0          # B1 (f64) kernel launches since the last reset
 launches_f32 = 0      # B2 (f32) kernel launches since the last reset
@@ -47,11 +46,10 @@ _ENTRY = {torch.float64: "fused_normal_matvec_f64",
 
 
 class FusedOperands:
-    """Device-resident operands of one sector's fused matvec in ``dtype``:
-    for B1 (float64) the ELL tables of the permuted hop factors, the f64
-    diagonal factors and the runs; for B2/B3 (float32) the f32 block tables
-    the TPU package's B2 reads (``fop.up_vals``/``dw_vals``, the diagonal
-    factors cast to f32) and the runs."""
+    """Device-resident operands of one sector's fused matvec in ``dtype``
+    (float64: B1, float32: B2 and B3): the ELL tables of the permuted hop
+    factors and the diagonal factors, cast to ``dtype`` at upload, and the
+    runs."""
 
     def __init__(self, fop: FusedNormalOp, device: torch.device,
                  dtype: torch.dtype = DTYPE):
@@ -64,29 +62,16 @@ class FusedOperands:
         def put(x, dt=dtype):          # the kernels read row-major tables
             return torch.as_tensor(x, dtype=dt, device=device).contiguous()
 
-        if dtype == torch.float64:
-            self.up_idx = put(fop.up_ell_idx, torch.int32)
-            self.up_val = put(fop.up_ell_val)
-            self.dw_idx = put(fop.dw_ell_idx, torch.int32)
-            self.dw_val = put(fop.dw_ell_val)
-            self.diag_a = put(fop.diag_a64)
-            self.diag_b = put(fop.diag_b64)
-            # the kernel reads only the factors' leading nonzero columns
-            used = np.flatnonzero(np.any(fop.diag_a64 != 0, axis=0)
-                                  & np.any(fop.diag_b64 != 0, axis=0))
-            self.rank = int(used[-1]) + 1 if len(used) else 0
-        else:
-            self.up_vals = put(fop.up_vals)
-            self.dw_vals = put(fop.dw_vals)
-            self.diag_a = put(fop.diag_a)
-            self.diag_b = put(fop.diag_b)
-            self.up_src = put(fop.up_src, torch.int32)
-            self.dw_src = put(fop.dw_src, torch.int32)
-            self.up_ptr = put(fop.up_ptr, torch.int32)
-            self.dw_ptr = put(fop.dw_ptr, torch.int32)
-            # host copies for the plain version's loops
-            self.up_ptr_h = [int(x) for x in fop.up_ptr]
-            self.dw_ptr_h = [int(x) for x in fop.dw_ptr]
+        self.up_idx = put(fop.up_ell_idx, torch.int32)
+        self.up_val = put(fop.up_ell_val)
+        self.dw_idx = put(fop.dw_ell_idx, torch.int32)
+        self.dw_val = put(fop.dw_ell_val)
+        self.diag_a = put(fop.diag_a)
+        self.diag_b = put(fop.diag_b)
+        # the kernel reads only the factors' leading nonzero columns
+        used = np.flatnonzero(np.any(fop.diag_a != 0, axis=0)
+                              & np.any(fop.diag_b != 0, axis=0))
+        self.rank = int(used[-1]) + 1 if len(used) else 0
         runs = [(r.dd0, r.sd0, r.ld, r.du0, r.su0, r.lu) for r in fop.nl_runs]
         self.runs_i = put(np.asarray(runs, np.int32).reshape(-1, 6),
                           torch.int32)
@@ -94,19 +79,13 @@ class FusedOperands:
         self.runs = list(fop.nl_runs)
 
     def args(self):
-        """The C entry point's operand pointers and sizes, in its order."""
-        runs = (self.runs_i.data_ptr(), self.runs_v.data_ptr(), len(self.runs))
-        if self.dtype == torch.float64:
-            return (self.up_idx.data_ptr(), self.up_val.data_ptr(),
-                    self.up_idx.shape[0], self.dw_idx.data_ptr(),
-                    self.dw_val.data_ptr(), self.dw_idx.shape[0],
-                    self.diag_a.data_ptr(), self.diag_b.data_ptr(),
-                    self.rank, *runs, self.ddp, self.dup)
-        return (self.up_vals.data_ptr(), self.up_src.data_ptr(),
-                self.up_ptr.data_ptr(), self.dw_vals.data_ptr(),
-                self.dw_src.data_ptr(), self.dw_ptr.data_ptr(),
-                self.diag_a.data_ptr(), self.diag_b.data_ptr(), *runs,
-                self.ddp, self.nbu, self.nbd)
+        """The C entry points' operand pointers and sizes, in their order."""
+        return (self.up_idx.data_ptr(), self.up_val.data_ptr(),
+                self.up_idx.shape[0], self.dw_idx.data_ptr(),
+                self.dw_val.data_ptr(), self.dw_idx.shape[0],
+                self.diag_a.data_ptr(), self.diag_b.data_ptr(), self.rank,
+                self.runs_i.data_ptr(), self.runs_v.data_ptr(),
+                len(self.runs), self.ddp, self.dup)
 
 
 def _check(v3: torch.Tensor, ops: FusedOperands) -> None:
@@ -134,8 +113,9 @@ def _stream(t: torch.Tensor) -> int:
 
 def fused_matvec(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     """W3 = H·V3 on the column-blocked layout (nbu*ddp, 128), in v3's dtype
-    (float64: B1, float32: B2). B1 raises for a sector whose one row of V
-    does not fit in shared memory (padded up dimension above about 29k)."""
+    (float64: B1, float32: B2). Raises for a sector whose one row of V
+    does not fit in shared memory (padded up dimension above about 29k in
+    f64, 58k in f32)."""
     global launches, launches_f32
     _check(v3, ops)
     if v3.device.type == "cpu":
@@ -180,45 +160,10 @@ def _add_runs(w2: torch.Tensor, v2: torch.Tensor, ops: FusedOperands
 def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_matvec` (same function, in the
     operands' dtype, from the same tables as the kernel)."""
-    if ops.dtype == torch.float32:
-        return block_matvec_plain(v3, ops)
     nbu, ddp = ops.nbu, ops.ddp
     v2 = v3.view(nbu, ddp, BLK).permute(1, 0, 2).reshape(ddp, nbu * BLK)
     w2 = ell_matvec_plain(v2, ops.diag_a @ ops.diag_b.T, ops.up_idx,
                           ops.up_val, ops.dw_idx, ops.dw_val)
-    _add_runs(w2, v2, ops)
-    return w2.view(ddp, nbu, BLK).permute(1, 0, 2).reshape(nbu * ddp, BLK)
-
-
-def block_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
-    """B2's plain version: the block tables' products (gathered source
-    blocks and one matmul per column / row block), then the runs."""
-    nbu, nbd, ddp = ops.nbu, ops.nbd, ops.ddp
-    v = v3.view(nbu, ddp, BLK)
-    # diagonal from its rank-8 factors: D[j, d, c] = a[d] . b[j*BLK + c]
-    w = torch.einsum("dk,jck->jdc", ops.diag_a,
-                     ops.diag_b.view(nbu, BLK, DIAG_RANK)) * v
-    # up factor: per column block j, one large-K matmul over its gathered
-    # source column blocks
-    for j in range(nbu):
-        lo, hi = ops.up_ptr_h[j], ops.up_ptr_h[j + 1]
-        if hi > lo:
-            g = v.index_select(0, ops.up_src[lo:hi])          # (n, ddp, BLK)
-            g = g.permute(1, 0, 2).reshape(ddp, (hi - lo) * BLK)
-            w[j] += g @ ops.up_vals[lo:hi].reshape((hi - lo) * BLK, BLK)
-    # dw factor: per 128-row block r, all column blocks at once
-    vb = v.view(nbu, nbd, BLK, BLK)
-    wb = w.view(nbu, nbd, BLK, BLK)
-    for r in range(nbd):
-        lo, hi = ops.dw_ptr_h[r], ops.dw_ptr_h[r + 1]
-        if hi > lo:
-            a = ops.dw_vals[lo:hi].permute(2, 0, 1).reshape(BLK, (hi - lo) * BLK)
-            g = vb.index_select(1, ops.dw_src[lo:hi])   # (nbu, n, BLK, BLK)
-            wb[:, r] += a @ g.reshape(nbu, (hi - lo) * BLK, BLK)
-    if not ops.runs:
-        return w.view(nbu * ddp, BLK)
-    w2 = w.permute(1, 0, 2).reshape(ddp, nbu * BLK)
-    v2 = v.permute(1, 0, 2).reshape(ddp, nbu * BLK)
     _add_runs(w2, v2, ops)
     return w2.view(ddp, nbu, BLK).permute(1, 0, 2).reshape(nbu * ddp, BLK)
 
@@ -242,7 +187,7 @@ def fused_power(v3: torch.Tensor, ops: FusedOperands, niter: int
     lib = _build.load_library()
     bufs = (torch.empty_like(v3), torch.empty_like(v3))
     f32 = dict(dtype=torch.float32, device=v3.device)
-    partials = torch.empty(ops.nbu * ops.nbd, **f32)
+    partials = torch.empty(ops.ddp, **f32)     # one per block of >= 1 row
     ssq = torch.ones(niter + 1, **f32)
     norms = torch.empty(niter, **f32)
     with torch.cuda.device(v3.device):

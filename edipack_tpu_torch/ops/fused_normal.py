@@ -16,16 +16,13 @@ path):
    in-between impurity bits is constant per (a,b).  The 8 full-array gather
    ops of the permutation form collapse to slice-shifted adds.
 
-2. **Block sparsity.**  The one-spin hop matrices carry ~6 nnz/row; under
-   imp-MSB ordering their nonzero 128x128 blocks drop to ~15-25% fill
-   (hybridization hops become monotone staircase maps between impurity
-   groups).  The factor products then run as block-compacted MXU matmuls
-   with the zero blocks skipped entirely.
+2. **Sparse factors.**  The one-spin hop matrices carry ~6 nnz/row.  The
+   TPU kernels multiply their nonzero 128x128 blocks as dense MXU tiles;
+   the CUDA kernels (csrc/row_gather.cu) read ELL tables of the same
+   permuted factors (``ell_table``), the ~6 nonzeros of each row, and skip
+   the zeros that the blocks still hold.
 
-The f32 kernels (csrc/fused_normal.cu) read the compacted blocks; the f64
-kernel (csrc/row_gather.cu) reads ELL tables of the same permuted factors,
-the ~6 nonzeros of each row, and skips the zeros the blocks still hold. The
-device side lives in ops.fused_matvec; this module holds the pure NumPy
+The device side lives in ops.fused_matvec; this module holds the pure NumPy
 metadata builder.
 """
 from __future__ import annotations
@@ -35,7 +32,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-BLK = 128          # factor block size (MXU native)
+BLK = 128          # column block of the fused kernels' layout
 DIAG_RANK = 8      # padded low-rank width of the diagonal
 
 
@@ -98,36 +95,6 @@ def ell_table(h: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return idx, val
 
 
-def _block_compact(h: np.ndarray, blk: int = BLK
-                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Compact the padded square matrix ``h`` (f64) into nonzero (blk x blk)
-    blocks grouped by COLUMN-block:  for col-block j the blocks
-    vals[ptr[j]:ptr[j+1]] hold h[src[m]*blk:(src[m]+1)*blk, j*blk:(j+1)*blk].
-
-    Grouping by column-block serves the right-multiply ``out = x @ h``:
-    out[:, jB] = sum_m x[:, src[m]B] @ vals[m].
-
-    Returns (vals f64, src, ptr)."""
-    n = h.shape[0]
-    assert n % blk == 0
-    nb = n // blk
-    hb = h.reshape(nb, blk, nb, blk)
-    nz = (np.abs(hb).sum(axis=(1, 3)) > 0)          # (row_blk, col_blk)
-    ptr = np.zeros(nb + 1, dtype=np.int32)
-    srcs, vals = [], []
-    for j in range(nb):
-        ks = np.nonzero(nz[:, j])[0]
-        ptr[j + 1] = ptr[j] + len(ks)
-        for k in ks:
-            srcs.append(k)
-            vals.append(hb[k, :, j, :])
-    if vals:
-        v64 = np.stack(vals).astype(np.float64)
-    else:
-        v64 = np.zeros((0, blk, blk), np.float64)
-    return v64, np.asarray(srcs, np.int32), ptr
-
-
 @dataclass
 class NlRun:
     """One non-local Kronecker term B (x) A as a rectangle-shifted add:
@@ -143,7 +110,7 @@ class NlRun:
 
 @dataclass
 class FusedNormalOp:
-    """Block-compacted, imp-MSB-ordered operator data for the fused kernel.
+    """Imp-MSB-ordered operator data for the fused kernels.
 
     The kernel works on padded (ddp, dup) tensors; entries beyond (dd, du)
     are structurally zero.  perm_up/perm_dw map internal index -> original
@@ -154,28 +121,17 @@ class FusedNormalOp:
     dup: int
     perm_up: np.ndarray
     perm_dw: np.ndarray
-    # right-multiply factor blocks of Hup^T (by output up col-block)
-    up_vals: np.ndarray
-    up_src: np.ndarray
-    up_ptr: np.ndarray
-    # factor blocks of Hdw^T (per 128-row block of the dw product)
-    dw_vals: np.ndarray
-    dw_src: np.ndarray
-    dw_ptr: np.ndarray
-    # diagonal low-rank factors: D = diag_a @ diag_b.T  (ddp,R) (dup,R)
+    # diagonal low-rank factors: D = diag_a @ diag_b.T  (ddp,R) (dup,R), f64
     diag_a: np.ndarray
     diag_b: np.ndarray
     nl_runs: List[NlRun]
     nnz: int
-    # f64 diagonal factors and ELL tables (``ell_table``) of the permuted
-    # padded factors Hup (rows u) and Hdw (rows d): the operands of the f64
-    # kernel
-    diag_a64: Optional[np.ndarray] = None
-    diag_b64: Optional[np.ndarray] = None
-    up_ell_idx: Optional[np.ndarray] = None
-    up_ell_val: Optional[np.ndarray] = None
-    dw_ell_idx: Optional[np.ndarray] = None
-    dw_ell_val: Optional[np.ndarray] = None
+    # ELL tables (``ell_table``) of the permuted padded factors Hup (rows u)
+    # and Hdw (rows d), f64 values
+    up_ell_idx: np.ndarray
+    up_ell_val: np.ndarray
+    dw_ell_idx: np.ndarray
+    dw_ell_val: np.ndarray
 
     # ---- layouts -------------------------------------------------------
     def to_blocked(self, v2: np.ndarray) -> np.ndarray:
@@ -255,8 +211,6 @@ def build_fused_normal(op, norb: int) -> Optional[FusedNormalOp]:
     hdw = np.zeros((ddp, ddp))
     hdw[:dd, :dd] = op.hdw[np.ix_(perm_dw, perm_dw)]
 
-    up64, up_src, up_ptr = _block_compact(hup.T)
-    dw64, dw_src, dw_ptr = _block_compact(hdw.T)
     up_idx, up_val = ell_table(hup)
     dw_idx, dw_val = ell_table(hdw)
 
@@ -275,11 +229,8 @@ def build_fused_normal(op, norb: int) -> Optional[FusedNormalOp]:
 
     return FusedNormalOp(
         dd=dd, du=du, ddp=ddp, dup=dup,
-        perm_up=perm_up, perm_dw=perm_dw,
-        up_vals=up64.astype(np.float32), up_src=up_src, up_ptr=up_ptr,
-        dw_vals=dw64.astype(np.float32), dw_src=dw_src, dw_ptr=dw_ptr,
-        diag_a=a64.astype(np.float32), diag_b=b64.astype(np.float32),
-        nl_runs=nl_runs, nnz=op.nnz_estimate(), diag_a64=a64, diag_b64=b64,
+        perm_up=perm_up, perm_dw=perm_dw, diag_a=a64, diag_b=b64,
+        nl_runs=nl_runs, nnz=op.nnz_estimate(),
         up_ell_idx=up_idx, up_ell_val=up_val,
         dw_ell_idx=dw_idx, dw_ell_val=dw_val,
     )

@@ -29,6 +29,18 @@ def _deflate(locked: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v - (locked @ v) @ locked
 
 
+def _lock(locked_vecs: list, locked_vals: list, vec: torch.Tensor,
+          val: float) -> None:
+    """Append the Ritz pair (``vec`` deflated against the locked vectors and
+    normalized, ``val``) unless nothing of ``vec`` is left."""
+    if locked_vecs:
+        vec = _deflate(torch.stack(locked_vecs), vec)
+    nrm = float(torch.linalg.norm(vec))
+    if nrm >= 1e-10:
+        locked_vecs.append(vec / nrm)
+        locked_vals.append(float(val))
+
+
 def lanczos_sweep(matvec: Callable, v0: torch.Tensor, m: int,
                   locked: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -170,26 +182,18 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
         ritz = coef @ V[:k_eff]                          # (n_take, dim)
         V = None
         scale = max(1.0, np.abs(tvals).max())
-        newly_converged = 0
+        j_open = n_take          # the first Ritz pair left unconverged
         for j in range(n_take):
             if resids[j] < tol * scale or k_eff >= dim - len(locked_vals):
-                vec = ritz[j]
-                if locked_vecs:
-                    vec = _deflate(torch.stack(locked_vecs), vec)
-                nrm = float(torch.linalg.norm(vec))
-                if nrm < 1e-10:
-                    continue
-                locked_vecs.append(vec / nrm)
-                locked_vals.append(float(tvals[j]))
-                newly_converged += 1
+                _lock(locked_vecs, locked_vals, ritz[j], tvals[j])
             else:
+                j_open = j
                 break
         if len(locked_vals) >= nev:
             break
         # restart from the first unconverged Ritz vector
-        j0 = newly_converged
-        if j0 < n_take:
-            start = ritz[j0]
+        if j_open < n_take:
+            start = ritz[j_open]
         else:
             start = random_start()
             if project is not None:
@@ -197,14 +201,12 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
         nrm = torch.linalg.norm(start)
         start = start / nrm if float(nrm) > 1e-12 else v0
     else:
-        if len(locked_vals) < nev:
-            # accept the best available Ritz approximations
-            for j in range(len(locked_vals), nev):
-                idx = j - len(locked_vals)
-                if idx < ritz.shape[0]:
-                    vec = ritz[idx]
-                    locked_vecs.append(vec / torch.linalg.norm(vec))
-                    locked_vals.append(float(tvals[idx]))
+        # at the restart cap, accept the last sweep's unconverged Ritz pairs
+        # in order, each deflated against the locked vectors and taken once
+        for j in range(j_open, n_take):
+            if len(locked_vals) >= nev:
+                break
+            _lock(locked_vecs, locked_vals, ritz[j], tvals[j])
 
     order = np.argsort(locked_vals[:nev])
     vals = np.asarray(locked_vals)[order]

@@ -8,8 +8,8 @@ ust=1.2, jh=0.2, jx=0.15, jp=0.15, zero Hloc, default bath), at the
 ``ed_solve`` without the profiler (it builds the kernels and gives the
 unprofiled wall time), then one warm ``ed_solve`` under ``torch.profiler``
 with CUDA activity only. It prints the device time by kernel, grouped as
-the fused matvec (B1's row_gather_kernel at f64, B2's fused_normal_kernel
-at f32), cuBLAS gemm/gemv (the full
+the fused matvec (B1 at f64, B2 at f32: the row-gather kernel's
+instantiations for double and float), cuBLAS gemm/gemv (the full
 reorthogonalization and Ritz products), host-to-device copies and the
 rest, and the device busy and idle shares of the profiled solve. Busy and
 idle both come from the one profiled window; the solve runs on one CUDA
@@ -34,8 +34,10 @@ TOP = 20
 
 
 def _group(name: str) -> str:
-    if "row_gather_kernel" in name or "fused_normal_kernel" in name:
-        return "fused matvec (B1/B2)"
+    if "row_gather_kernel<double" in name:
+        return "fused matvec B1 (f64)"
+    if "row_gather_kernel<float" in name:
+        return "fused matvec B2 (f32)"
     low = name.lower()
     if "gemm" in low or "gemv" in low or "splitk" in low:
         return "cuBLAS gemm/gemv"

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import EDConfig
+from ..device import working_dtype
 from ..ops.lanczos import batched_eigh, eigsh_lowest
 from ..sectors import Sector, SectorTable
 from .eigenspace import EigenState, StateList
@@ -31,6 +32,19 @@ from .eigenspace import EigenState, StateList
 # ed_sanitize: <u,Hv> vs <Hu,v> relative defect allowed for an operator of
 # each dtype (f32: edipack_tpu's limit, set by the f32 matvec noise)
 HERMITICITY_LIMIT = {torch.float64: 1e-10, torch.float32: 5e-5}
+# T=0 ground multiplet: levels within this many units of the working
+# dtype's rounding of E0 count as degenerate, whatever gs_threshold says
+GS_ULPS = 8
+
+
+def gs_window(cfg: EDConfig, e0: float) -> float:
+    """The T=0 ground-multiplet window: gs_threshold, widened to GS_ULPS
+    roundings of E0 in the working dtype. An f32 solve's Lanczos energies
+    are f32 Ritz values, so exactly degenerate levels of two sectors (spin
+    twins) come out one or two f32 steps of E0 apart; in f64 the widening
+    is below 1e-13 and gs_threshold (1e-9) rules."""
+    eps = torch.finfo(working_dtype(cfg)).eps
+    return max(cfg.gs_threshold, GS_ULPS * eps * abs(e0))
 
 
 @dataclass
@@ -187,7 +201,7 @@ def _finish(cfg: EDConfig, table: SectorTable, sl: StateList,
 
     # trim + adaptive feedback (reference ed_post_diag,
     # ED_DIAG_NORMAL.f90:443-517)
-    trimmed = sl.trim(cfg.ed_finite_temp, cfg.cutoff, cfg.gs_threshold,
+    trimmed = sl.trim(cfg.ed_finite_temp, cfg.cutoff, gs_window(cfg, sl.e0),
                       cfg.lanc_nstates_total)
     counts = np.zeros(nsec, dtype=int)
     for st in trimmed:

@@ -183,3 +183,23 @@ def test_f32_slice_vs_golden_n2b4(tmp_path, monkeypatch):
                    ("energies", TOL["obs"]), ("sigma", TOL["sigma"])):
         assert dev[k] <= lim, (k, dev[k], lim)
     ted.ed_finalize_solver()
+
+
+def test_gs_window_keeps_twins_split_by_f32_rounding():
+    """At T=0 an f32 solve keeps the levels a few f32 steps above E0 (two
+    twin sectors' lowest levels, split by rounding) and drops the next
+    level; f64 keeps gs_threshold. The levels are config 2's (norb=2,
+    nbath=6) as its f32 solve finds them: the twin 2 f32 steps up, the
+    (7,7) level 1.945e-4 up."""
+    from edipack_tpu_torch.solver.diag import gs_window
+    from edipack_tpu_torch.solver.eigenspace import EigenState, StateList
+    e0 = float(np.float32(-15.206272125244))
+    step = abs(float(np.spacing(np.float32(e0))))
+    sl = StateList([EigenState(e0, 0, None), EigenState(e0 + 2 * step, 1, None),
+                    EigenState(e0 + 1.945e-4, 2, None)])
+    cfg32 = default_config(**CONFIG)
+    cfg64 = cfg32.replace(ed_precision="float64")
+    assert gs_window(cfg64, e0) == cfg64.gs_threshold
+    kept = {p: [s.sector for s in sl.trim(False, 0.0, gs_window(c, e0), 1)]
+            for p, c in (("f32", cfg32), ("f64", cfg64))}
+    assert kept == {"f32": [0, 1], "f64": [0]}

@@ -18,8 +18,7 @@ from edipack_tpu.umatrix import build_umatrix as j_umatrix
 from edipack_tpu_torch.bath.dmft_bath import bath_to_array, init_bath
 from edipack_tpu_torch.convert import bath_from_array, config_from_jax
 from edipack_tpu_torch.models.normal import build_normal_sector_op
-from edipack_tpu_torch.ops.fused_normal import (_block_compact,
-                                                build_fused_normal, ell_table)
+from edipack_tpu_torch.ops.fused_normal import build_fused_normal, ell_table
 from edipack_tpu_torch.sectors import SectorTable
 from edipack_tpu_torch.umatrix import build_umatrix
 
@@ -109,28 +108,28 @@ def test_fused_metadata(kw, qn):
     assert jf is not None and f is not None
     for name in ("dd", "du", "ddp", "dup", "nnz"):
         assert getattr(jf, name) == getattr(f, name), name
-    for name in ("perm_up", "perm_dw", "up_src", "up_ptr", "dw_src", "dw_ptr",
-                 "up_vals", "dw_vals", "diag_a", "diag_b", "diag_a64",
-                 "diag_b64"):
-        a, b = getattr(jf, name), getattr(f, name)
+    for name, jname in (("perm_up", "perm_up"), ("perm_dw", "perm_dw"),
+                        ("diag_a", "diag_a64"), ("diag_b", "diag_b64")):
+        a, b = getattr(jf, jname), getattr(f, name)
         assert a.dtype == b.dtype and np.array_equal(a, b), name
     assert [dataclasses.astuple(r) for r in jf.nl_runs] == \
         [dataclasses.astuple(r) for r in f.nl_runs]
-    # the f64 kernel's ELL tables hold the permuted factors exactly; their
-    # f64 blocks are the exact values behind the f32 (hi) tables ...
-    for idx, val, h, vals, lo in (
-            (f.up_ell_idx, f.up_ell_val,
-             _permuted(op.hup, f.perm_up, f.dup), f.up_vals, jf.up_vals_lo),
-            (f.dw_ell_idx, f.dw_ell_val,
-             _permuted(op.hdw, f.perm_dw, f.ddp), f.dw_vals, jf.dw_vals_lo)):
+    # the kernels' ELL tables hold the permuted factors exactly; in f32
+    # they are the TPU package's f32 (hi) blocks, and in f64 its hi + lo
+    # blocks to their precision
+    hi_lo = dataclasses.replace(
+        jf, up_vals=jf.up_vals.astype(np.float64) + jf.up_vals_lo,
+        dw_vals=jf.dw_vals.astype(np.float64) + jf.dw_vals_lo)
+    for idx, val, h, j_hi, j_ds in (
+            (f.up_ell_idx, f.up_ell_val, _permuted(op.hup, f.perm_up, f.dup),
+             jf.dense_hup(), hi_lo.dense_hup()),
+            (f.dw_ell_idx, f.dw_ell_val, _permuted(op.hdw, f.perm_dw, f.ddp),
+             jf.dense_hdw(), hi_lo.dense_hdw())):
         assert val.dtype == np.float64 and idx.dtype == np.int32
-        assert np.array_equal(_ell_dense(idx, val), h)
-        v64, _, _ = _block_compact(h.T)
-        assert np.array_equal(v64.astype(np.float32), vals)
-        # ... and equal the TPU package's hi + lo reconstruction to its
-        # precision
-        ds = vals.astype(np.float64) + lo.astype(np.float64)
-        assert np.abs(v64 - ds).max() <= 1e-13 * max(np.abs(v64).max(), 1.0)
+        dense = _ell_dense(idx, val)
+        assert np.array_equal(dense, h)
+        assert np.array_equal(dense.astype(np.float32), j_hi)
+        assert np.abs(dense - j_ds).max() <= 1e-13 * max(np.abs(h).max(), 1.0)
 
 
 def _permuted(h, perm, n):

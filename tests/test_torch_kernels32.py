@@ -1,9 +1,10 @@
 """edipack_tpu_torch's f32 kernels' plain PyTorch versions (the CPU side of
 kernels B2, B3 and B4) against edipack_tpu's on the same inputs:
 
-* B2, the f32 fused sector matvec, against the TPU package's NumPy oracle
-  on its f32 tables (``apply_ref``) and its f32 KronMatvec, at relative
-  3e-6 (tests/test_fused.py's bound for 'highest');
+* B2, the f32 fused sector matvec (the sparse row-gather kernel on the
+  ELL tables of the hop factors, cast to f32), against the TPU package's
+  NumPy oracle on its f32 tables (``apply_ref``) and its f32 KronMatvec,
+  at relative 3e-6 (tests/test_fused.py's bound for 'highest');
 * B3, the chained power steps, against the oracle's power loop, norms and
   the final normalized vector at 1e-5 (tests/test_fused.py);
 * B4, the Kron operator (a sparse row-gather kernel on ELL tables of the
@@ -47,6 +48,8 @@ KANAMORI = dict(uloc=[2.0, 2.0], ust=1.2, jh=0.2, jx=0.15, jp=0.15)
 # nbath=4 (5,4): 2x2 tiles, runs with source-block offsets and lane shifts
 FUSED = (dict(norb=2, nbath=4, nspin=1, **KANAMORI), (5, 4),
          np.diag([0.1, -0.2]))
+# nbath=7 (6,1): a wide up dimension and a short last row block
+WIDE = (dict(norb=2, nbath=7, nspin=1, **KANAMORI), (6, 1), np.zeros(2))
 # tests/test_pallas_kron.py's sector
 KRON = (dict(norb=2, nbath=2, nspin=1, uloc=[2.0, 1.5], ust=0.7, jh=0.1,
              jx=0.1, jp=0.1, xmu=0.2), (3, 2),
@@ -87,17 +90,33 @@ def _padded_f32(jf, seed):
     return v.astype(np.float32)
 
 
+def _ell_dense(idx, val):
+    n = idx.shape[1]
+    h = np.zeros((n, n), val.dtype)
+    np.add.at(h, (np.broadcast_to(np.arange(n), idx.shape), idx), val)
+    return h
+
+
 def test_b2_operands_are_the_tpu_f32_tables(fused32):
+    """B2's f32 ELL tables, expanded, are the dense factors the TPU
+    package's f32 blocks describe; its diagonal factors are the TPU's f32
+    ones."""
     _, jf, mv = fused32
     ops = mv.ops
-    assert ops.dtype == torch.float32 and ops.up_vals.dtype == torch.float32
-    assert np.array_equal(ops.up_vals.numpy(), jf.up_vals)
-    assert np.array_equal(ops.dw_vals.numpy(), jf.dw_vals)
+    assert ops.dtype == torch.float32
+    assert ops.up_val.dtype == ops.dw_val.dtype == torch.float32
+    assert ops.up_idx.dtype == ops.dw_idx.dtype == torch.int32
+    assert np.array_equal(_ell_dense(ops.up_idx.numpy(), ops.up_val.numpy()),
+                          jf.dense_hup())
+    assert np.array_equal(_ell_dense(ops.dw_idx.numpy(), ops.dw_val.numpy()),
+                          jf.dense_hdw())
     assert np.array_equal(ops.diag_a.numpy(), jf.diag_a)
     assert np.array_equal(ops.diag_b.numpy(), jf.diag_b)
+    assert ops.runs_v.dtype == torch.float32
     # the kernel reads them row-major, whatever the host arrays' strides
-    assert all(t.is_contiguous() for t in (ops.up_vals, ops.dw_vals,
-                                           ops.diag_a, ops.diag_b))
+    assert all(t.is_contiguous() for t in (
+        ops.up_idx, ops.up_val, ops.dw_idx, ops.dw_val, ops.diag_a,
+        ops.diag_b, ops.runs_i, ops.runs_v))
 
 
 def test_b2_plain_vs_jax_oracle(fused32):
@@ -238,12 +257,26 @@ def _card():
     return torch.device("cuda")
 
 
+def _card_sector(sector, fused32):
+    """The (5,4) sector's fused operator (8 rows a block, 256 padded rows)
+    or the wide nbath=7 (6,1) one (8008 up states padded to 8064, 16 down
+    states padded to 128: 7 rows a block in f32, so the last block is
+    short), and a padded f32 vector on its layout."""
+    if sector == "fused":
+        fop = fused32[2].fop
+    else:
+        _, op, jcfg = _ops(*WIDE)
+        fop = build_fused_normal(op, jcfg.norb)
+    return fop, _padded_f32(fop, 7)
+
+
 @pytest.mark.cuda
-def test_b2_kernel_vs_plain_on_card(fused32):
+@pytest.mark.parametrize("sector", ["fused", "wide"])
+def test_b2_kernel_vs_plain_on_card(sector, fused32):
     dev = _card()
-    _, jf, mv_cpu = fused32
-    mv = fm.FusedKron(mv_cpu.fop, dev, dtype=torch.float32)
-    v3 = torch.as_tensor(jf.to_blocked(_padded_f32(jf, 7)), device=dev)
+    fop, v = _card_sector(sector, fused32)
+    mv = fm.FusedKron(fop, dev, dtype=torch.float32)
+    v3 = torch.as_tensor(fop.to_blocked(v), device=dev)
     before = fm.launches_f32
     out = fm.fused_matvec(v3, mv.ops)
     torch.cuda.synchronize()
@@ -253,11 +286,12 @@ def test_b2_kernel_vs_plain_on_card(fused32):
 
 
 @pytest.mark.cuda
-def test_b3_kernel_vs_plain_on_card(fused32):
+@pytest.mark.parametrize("sector", ["fused", "wide"])
+def test_b3_kernel_vs_plain_on_card(sector, fused32):
     dev = _card()
-    _, jf, mv_cpu = fused32
-    ops = fm.FusedOperands(mv_cpu.fop, dev, torch.float32)
-    v3 = torch.as_tensor(jf.to_blocked(_padded_f32(jf, 8)), device=dev)
+    fop, v = _card_sector(sector, fused32)
+    ops = fm.FusedOperands(fop, dev, torch.float32)
+    v3 = torch.as_tensor(fop.to_blocked(v), device=dev)
     before = fm.power_launches
     w3, norms = fm.fused_power(v3, ops, 8)
     torch.cuda.synchronize()

@@ -120,3 +120,39 @@ def test_batched_eigh():
     m = m + m.transpose(0, 2, 1)
     vals, _ = batched_eigh(torch.as_tensor(m))
     assert np.abs(vals.numpy() - np.linalg.eigvalsh(m)).max() <= 1e-12
+
+
+class _DenseMatvec:
+    def __init__(self, h: np.ndarray, dtype: torch.dtype):
+        self.h = torch.as_tensor(h, dtype=dtype)
+        self.dim = h.shape[0]
+        self.device = CPU
+
+    def __call__(self, v):
+        return self.h @ v
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-5)])
+def test_eigsh_restart_cap_keeps_distinct_ritz_pairs(dtype, atol):
+    """At the restart cap with several pairs unconverged, eigsh_lowest
+    returns the last sweep's Ritz pairs once each: orthonormal vectors,
+    distinct values, each value the vector's Rayleigh quotient and above
+    the exact eigenvalue of its rank (Cauchy interlacing)."""
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(300, 300))
+    h = (a + a.T) / 2
+    mv = _DenseMatvec(h, dtype)
+    nev = 3
+    stats = {}
+    vals, vecs = eigsh_lowest(mv, mv.dim, nev, dtype=dtype, tol=0.0,
+                              max_restarts=1, stats=stats)
+    assert stats["n_restarts"] == 1 and vecs.shape == (nev, mv.dim)
+    g = (vecs @ vecs.T).double()
+    assert torch.allclose(g, torch.eye(nev, dtype=g.dtype), atol=atol)
+    assert np.all(np.diff(vals) > 1e-3)
+    hv = torch.as_tensor(h) @ vecs.double().T
+    rq = (vecs.double().T * hv).sum(0).numpy()
+    scale = np.abs(vals).max()
+    assert np.abs(rq - vals).max() <= atol * scale * 10
+    assert np.all(vals >= np.linalg.eigvalsh(h)[:nev] - atol * scale)

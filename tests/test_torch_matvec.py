@@ -1,11 +1,11 @@
 """edipack_tpu_torch's sector matvecs against edipack_tpu's: the dense-factor
 KronMatvec, and the fused operator's plain PyTorch version (the CPU side of
 the CUDA kernel) against the TPU package's NumPy oracle and f64 KronMatvec.
-For float64 the plain version reads the ELL tables the kernel reads (B1,
-the sparse row-gather kernel); it is also held to the block-table plain
-version that B2 keeps. The kernel itself is compared with the plain version
-on the card."""
+The plain version reads the ELL tables the kernel reads (B1 and B2, the
+sparse row-gather kernel in f64 and f32); in f32 it is also held to the f64
+one. The kernel itself is compared with the plain version on the card."""
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,8 +23,7 @@ from edipack_tpu.umatrix import build_umatrix as j_umatrix
 from edipack_tpu_torch.models.normal import build_normal_sector_op
 from edipack_tpu_torch.ops import fused_matvec as fm
 from edipack_tpu_torch.ops import _build
-from edipack_tpu_torch.ops.fused_normal import (_block_compact,
-                                                build_fused_normal)
+from edipack_tpu_torch.ops.fused_normal import build_fused_normal
 from edipack_tpu_torch.ops.matvec import KronMatvec
 from edipack_tpu_torch.sectors import SectorTable
 from edipack_tpu_torch.umatrix import build_umatrix
@@ -34,6 +33,7 @@ from edipack_tpu_torch.convert import config_from_jax
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 RTOL = 1e-12     # f64 products in another summation order
+RTOL_F32 = 3e-6  # f32 products (tests/test_fused.py:53)
 KANAMORI = dict(uloc=[2.0, 2.0], ust=1.2, jh=0.2, jx=0.15, jp=0.15)
 SECTORS = {
     "config1": (dict(norb=1, nbath=4, nspin=1), (2, 3)),
@@ -44,6 +44,10 @@ SECTORS = {
 # nbath=4 (5,4): nbu = nbd = 2, so the runs' source-block offsets and the
 # lane shift (delta != 0) and its clipped branches are exercised
 FUSED = (dict(norb=2, nbath=4, nspin=1, **KANAMORI), (5, 4))
+# nbath=7 (6,1): 8008 up states padded to 8064, 16 down states padded to
+# 128; one row of V takes so much shared memory that a block owns 3 rows in
+# f64 (7 in f32), and the last block is short
+WIDE = (dict(norb=2, nbath=7, nspin=1, **KANAMORI), (6, 1))
 
 
 def _ops(kw, qn):
@@ -131,46 +135,42 @@ def test_fused_plain_vs_jax_oracle(fused):
 
 
 @pytest.mark.parametrize("case", ["fused", "kanamori"])
-def test_fused_ell_plain_vs_block_plain(case, fused):
-    """B1's ELL plain version against the block products (B2's plain
-    version) fed the same f64 values."""
+def test_fused_f32_ell_plain_vs_f64(case, fused):
+    """The f32 ELL plain version (B2's) against the f64 one (B1's) on the
+    same vector."""
     if case == "fused":
-        jop, _, mv = fused
-        fop = mv.fop
+        fop = fused[2].fop
     else:
-        jop, op, jcfg = _ops(*SECTORS["kanamori"])
+        _, op, jcfg = _ops(*SECTORS["kanamori"])
         fop = build_fused_normal(op, jcfg.norb)
-        mv = fm.FusedKron(fop, CPU)
-    blk = fm.FusedOperands(fop, CPU, torch.float32)
-    for name, h, perm, n in (("up_vals", jop.hup, fop.perm_up, fop.dup),
-                             ("dw_vals", jop.hdw, fop.perm_dw, fop.ddp)):
-        hp = np.zeros((n, n))
-        hp[:len(perm), :len(perm)] = np.asarray(h)[np.ix_(perm, perm)]
-        setattr(blk, name, torch.as_tensor(_block_compact(hp.T)[0]))
-    blk.diag_a = torch.as_tensor(fop.diag_a64)
-    blk.diag_b = torch.as_tensor(fop.diag_b64)
-    blk.runs_v = blk.runs_v.double()
+    mv = fm.FusedKron(fop, CPU)
+    ops32 = fm.FusedOperands(fop, CPU, torch.float32)
+    assert ops32.rank == mv.ops.rank
     v = torch.as_tensor(np.random.default_rng(8).normal(size=fop.dd * fop.du))
     v3 = mv.to_internal_flat(v).view(-1, 128)
     out = fm.fused_matvec_plain(v3, mv.ops)
-    assert _rel(out.numpy(), fm.block_matvec_plain(v3, blk).numpy()) <= 1e-13
+    out32 = fm.fused_matvec_plain(v3.float(), ops32)
+    assert out32.dtype == torch.float32
+    assert _rel(out32.double().numpy(), out.numpy()) <= RTOL_F32
 
 
-def test_fused_f64_cpu_takes_ell_plain(fused, monkeypatch):
-    """A float64 CPU tensor goes through the ELL plain version: no kernel
-    build, no launch, no block products."""
-    _, _, mv = fused
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_cpu_takes_ell_plain(dtype, fused, monkeypatch):
+    """A CPU tensor goes through the ELL plain version in its dtype: no
+    kernel build, no launch."""
+    _, _, mv64 = fused
+    mv = mv64 if dtype == torch.float64 else \
+        fm.FusedKron(mv64.fop, CPU, dtype=dtype)
 
     def refuse(*a, **k):
         raise AssertionError("not on this path")
 
     monkeypatch.setattr(_build, "load_library", refuse)
-    monkeypatch.setattr(fm, "block_matvec_plain", refuse)
     v3 = mv.v0_project(torch.as_tensor(
-        np.random.default_rng(9).normal(size=mv.dim))).view(-1, 128)
-    before = fm.launches
+        np.random.default_rng(9).normal(size=mv.dim))).view(-1, 128).to(dtype)
+    before = (fm.launches, fm.launches_f32)
     out = fm.fused_matvec(v3, mv.ops)
-    assert fm.launches == before and out.dtype == torch.float64
+    assert (fm.launches, fm.launches_f32) == before and out.dtype == dtype
     v2 = v3.view(mv.nbu, mv.ddp, 128).permute(1, 0, 2).reshape(mv.ddp, -1)
     w2 = fm.ell_matvec_plain(v2, mv.ops.diag_a @ mv.ops.diag_b.T,
                              mv.ops.up_idx, mv.ops.up_val, mv.ops.dw_idx,
@@ -180,6 +180,34 @@ def test_fused_f64_cpu_takes_ell_plain(fused, monkeypatch):
             rn.val * v2[rn.sd0:rn.sd0 + rn.ld, rn.su0:rn.su0 + rn.lu]
     assert torch.equal(out, w2.view(mv.ddp, mv.nbu, 128).permute(1, 0, 2)
                        .reshape(-1, 128))
+
+
+def test_build_declares_the_row_gather_entries():
+    """One CUDA source holds every kernel: _build compiles row_gather.cu
+    alone, and _build._declare gives each of its C entry points as many
+    arguments as the source's signature has (read from the text; no
+    nvcc)."""
+    assert [p.name for p in _build.SOURCES] == ["row_gather.cu"]
+    src = _build.SOURCES[0].read_text()
+    extern_c = src[src.index('extern "C" {'):]
+
+    class Lib:                      # records what _declare sets
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    lib = Lib()
+    _build._declare(lib)
+    assert sorted(vars(lib)) == sorted([
+        "fused_normal_matvec_f64", "fused_normal_matvec_f32",
+        "fused_normal_power_f32", "kron_tiles_matvec_f32",
+        "fused_normal_error_string"])
+    for name, fn in vars(lib).items():
+        head = extern_c[extern_c.index(f" {name}("):]
+        params = head[head.index("(") + 1:head.index(")")]
+        assert len(fn.argtypes) == params.count(",") + 1, name
+    assert not (_build.SOURCES[0].parent / "fused_normal.cu").exists()
 
 
 def test_fused_plain_vs_jax_kron(fused):
@@ -214,14 +242,20 @@ def test_fused_wrapper_checks(fused):
 
 
 @pytest.mark.cuda
-def test_fused_kernel_vs_plain_on_card(fused):
-    """B1 against its plain version."""
+@pytest.mark.parametrize("sector", ["fused", "wide"])
+def test_fused_kernel_vs_plain_on_card(sector, fused):
+    """B1 against its plain version, at the (5,4) sector and at a wide one
+    whose last row block is short."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (the kernel has no CPU mode)")
-    _, jf, mv_cpu = fused
+    if sector == "fused":
+        fop = fused[2].fop
+    else:
+        _, op, jcfg = _ops(*WIDE)
+        fop = build_fused_normal(op, jcfg.norb)
     dev = torch.device("cuda")
-    mv = fm.FusedKron(mv_cpu.fop, dev)
-    v = torch.as_tensor(np.random.default_rng(7).normal(size=jf.dd * jf.du),
+    mv = fm.FusedKron(fop, dev)
+    v = torch.as_tensor(np.random.default_rng(7).normal(size=fop.dd * fop.du),
                         device=dev)
     v3 = mv.to_internal_flat(v).view(-1, 128)
     before = fm.launches
