@@ -35,10 +35,18 @@ non-zero on any fault):
           within E0_F32_RTOL), and its G (on the BETA_GRID frequencies),
           densities, double occupancies and energies against the f64
           solve's at TOL_F32_EXACT
+  dmft    the DMFT loop on the card: (a) two Bethe-lattice iterations
+          (solve, Δ = (D/2)² G, ed_chi2_fitgf) at norb=2, nbath=4 through
+          B1, held to tests/data/torch_port_golden_dmft_n2b4.json; (b) config
+          2's second iteration: the bath fitted to Δ of the f64 solve above
+          (its first iteration), the restart files written, a new solver
+          started from hamiltonian.restart and state_list.restart, and its
+          ed_solve through B1 with ed_write_files on, checked like the first
 
 Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
-power-step entry for B3, the row-gather Lanczos for B4) runs with every
-launch counter set to 0 just before it and read just after. The line before
+power-step entry for B3, the row-gather Lanczos for B4, and for B1 also
+config 2's second DMFT iteration) runs with every launch counter set to 0
+just before it and read just after. The line before
 the last is the kernel report (JSON), printed only once every phase has
 run: ``launches`` from those paths, ``max_abs_err``, ``ms`` (L2 flushed),
 ``ms_back_to_back``, ``plain_ms`` and ``library_ms`` (the faster of the
@@ -65,6 +73,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
 GOLDEN = os.path.join(DATA, "torch_port_golden_n2b4.json")
 GOLDEN_F32 = os.path.join(DATA, "torch_port_golden_f32_n2b4.json")
+GOLDEN_DMFT = os.path.join(DATA, "torch_port_golden_dmft_n2b4.json")
 KANAMORI = dict(uloc=[2.0, 2.0], ust=1.2, jh=0.2, jx=0.15, jp=0.15)
 # tests/test_pallas_kron.py's sector model
 KRON_SMALL = dict(uloc=[2.0, 1.5], ust=0.7, jh=0.1, jx=0.1, jp=0.1, xmu=0.2)
@@ -84,6 +93,12 @@ TOL_F32_EXACT = dict(e0=3e-5, dens=1e-5, docc=1e-5, energies=1e-5, gimp=1e-4,
                      sigma=1e-3)
 TOL_F32 = dict(TOL_F32_EXACT, e0=3.3e-4, gimp=2.4e-4)
 E0_F32_RTOL = 1e-5        # config 2: f32 e0 vs f64 e0, relative
+# the DMFT golden: loop 1 at TOL; the fitted baths and loop 2 at
+# TOL_DMFT, tests/test_torch_dmft.py's GOLDEN_TOL (it states the gaps of
+# the port's loops on the CPU that set it)
+TOL_DMFT = dict(e0=1e-7, dens=1e-7, docc=1e-7, gimp=1e-7, sigma=1e-5,
+                bath=1e-7)
+WBAND = 1.0               # Bethe lattice half-bandwidth D
 # Matsubara grid on which config 2's f32 G is held to its f64 G at
 # TOL_F32_EXACT, as the f32 golden file's (tests/test_torch_f32.py): on the
 # solve's own grid (beta = 1000) the lowest frequencies magnify the f32
@@ -652,7 +667,9 @@ def phase_solve(report: dict) -> None:
               for qn, st in _kept(res).items()}
     obs64 = _observables()
     ed.ed_finalize_solver()
-    del res, tiles, mv
+    # the first DMFT iteration of the dmft phase
+    report["loop1"] = dict(cfg=cfg, res=res, wall=wall)
+    del tiles, mv
     # config 2 in f32 through ed_solve (auto: B2 for dim >= 2^17)
     cfg32, bath32 = _config2("float32")
     res32, counts, wall = _solve_once("config 2 f32 cold", cfg32, bath32)
@@ -675,6 +692,155 @@ def phase_solve(report: dict) -> None:
         if not dev <= TOL_F32_EXACT[k]:
             fail(f"config 2 f32 {k} off the f64 solve's by {dev:.3e}")
     ed.ed_finalize_solver()
+
+
+def _dmft_loops(cfg, nloops: int) -> list:
+    """``nloops`` Bethe DMFT iterations of ``cfg`` (the current config) on
+    the card through the ed_* API, as tests/gen_torch_golden.py runs them
+    in edipack_tpu: solve, then fit the bath to Δ = (D/2)² G."""
+    import edipack_tpu_torch.main as ed
+    z = _z(cfg.beta)
+    bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+    ed.ed_set_hloc(np.zeros((1, 1, cfg.norb, cfg.norb)))
+    out = []
+    for _ in range(nloops):
+        res = ed.ed_solve(bath)
+        delta = (WBAND / 2.0) ** 2 * ed.ed_get_gimp(axis="m")
+        t0 = time.perf_counter()
+        bath = ed.ed_chi2_fitgf(delta, bath, ispin=1)
+        out.append(dict(e0=res.e0, dens=ed.ed_get_dens(),
+                        docc=ed.ed_get_docc(), gimp=ed.ed_get_gimp(z),
+                        sigma=ed.ed_get_sigma(z), bath=np.asarray(bath),
+                        fit_s=time.perf_counter() - t0))
+    ed.ed_finalize_solver()
+    return out
+
+
+def _dmft_golden(report: dict) -> None:
+    """Two DMFT iterations at norb=2, nbath=4 through B1 against the
+    edipack_tpu golden file: loop 1 at TOL, the fitted baths and loop 2 at
+    TOL_DMFT."""
+    import edipack_tpu_torch as ed
+    with open(GOLDEN_DMFT) as fh:
+        gold = json.load(fh)
+    cfg = ed.set_config(ed.default_config(**gold["config"], ed_verbose=0,
+                                          ed_fused_matvec="always"))
+    reset_counts()
+    loops = _dmft_loops(cfg, len(gold["loops"]))
+    launched = read_counts()["B1"]
+    cplx = lambda a: np.asarray(a)[..., 0] + 1j * np.asarray(a)[..., 1]
+    for k, (got, want) in enumerate(zip(loops, gold["loops"])):
+        tol = dict(TOL if k == 0 else TOL_DMFT, bath=TOL_DMFT["bath"])
+        print(f"[dmft] golden loop {k + 1}: e0 {got['e0']:.12f} (ref "
+              f"{want['e0']:.12f}), fit {got['fit_s']:.2f} s")
+        for key in ("e0", "dens", "docc", "gimp", "sigma", "bath"):
+            ref = cplx(want[key]) if key in ("gimp", "sigma") else want[key]
+            _check_close(f"{key} loop {k + 1}", got[key], ref, tol[key])
+    print(f"[dmft] golden B1 launches {launched}")
+    if launched <= 0:
+        fail("the DMFT golden loops did not launch B1")
+
+
+def _lanczos_nev(res, neigen) -> dict:
+    """Lanczos sectors whose number of levels is not what ``neigen``
+    asks for (diag._lanczos_solve_sector: min(neigen, dim - 1))."""
+    bad = {}
+    for i, ev in res.diag.evals_by_sector.items():
+        dim = res.table.get_dim(i)
+        if dim > res.cfg.lanc_dim_threshold \
+                and len(ev) != min(max(int(neigen[i]), 1), dim - 1):
+            bad[i] = (len(ev), int(neigen[i]))
+    return bad
+
+
+def phase_dmft(report: dict) -> None:
+    """(a) the n2b4 DMFT golden; (b) config 2's second DMFT iteration from
+    the restart files its first (phase_solve's f64 solve) writes."""
+    import tempfile
+    import torch
+    import edipack_tpu_torch as ed
+    from edipack_tpu_torch import io as edio
+    from edipack_tpu_torch.bath.dmft_bath import bath_to_array
+    from edipack_tpu_torch.bath.fit import chi2_function, value_and_grad
+    from edipack_tpu_torch.models.normal import build_normal_sector_op
+    from edipack_tpu_torch.ops.lanczos import eigsh_lowest
+    from edipack_tpu_torch.ops.matvec import KronMatvec
+    _dmft_golden(report)
+    loop1 = report.pop("loop1")
+    res1 = loop1["res"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dmft_") as out:
+        cfg = ed.set_config(loop1["cfg"].replace(
+            ed_write_files=True, ed_output_dir=out,
+            hfile=os.path.join(out, "hamiltonian")))
+        # 1. fit the bath to Δ = (D/2)² G of the first iteration
+        bath1 = bath_to_array(res1.bath)
+        delta1 = (WBAND / 2.0) ** 2 * res1.get_gimp(axis="m")
+        chi2, p_full, idx = chi2_function(cfg, delta1, bath1)
+        fun = value_and_grad(chi2)
+        idx = idx.numpy()
+        t0 = time.perf_counter()
+        bath2 = ed.ed_chi2_fitgf(delta1, bath1, ispin=1)
+        fit_s = time.perf_counter() - t0
+        chi_before, chi_after = fun(bath1[idx])[0], fun(bath2[idx])[0]
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fun(bath2[idx])
+        eval_ms = (time.perf_counter() - t0) / 20 * 1e3
+        print(f"[dmft] config 2 fit (host CPU, {len(idx)} parameters, lfit "
+              f"{cfg.lfit}, cg_method {cfg.cg_method}): {fit_s:.2f} s "
+              f"({fit_s / loop1['wall']:.3f} of loop 1's solve), chi2 "
+              f"{chi_before:.6e} -> {chi_after:.6e}; chi2 and gradient "
+              f"{eval_ms:.3f} ms an evaluation, so about "
+              f"{fit_s / eval_ms * 1e3:.0f} evaluations")
+        if not (np.all(np.isfinite(bath2)) and chi_after < chi_before):
+            fail(f"config 2 fit: chi2 {chi_before:.3e} -> {chi_after:.3e}")
+        # 2. the restart files: the first iteration's outputs, the bath
+        edio.write_all_outputs(cfg, res1)
+        ed.ed_save_array_as_bath(bath2, cfg=cfg)
+        # 3. a new solver from hamiltonian.restart
+        adopted = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+        if not np.array_equal(adopted, bath2):
+            fail("ed_init_solver did not adopt hamiltonian.restart bit for "
+                 f"bit (max dev {np.abs(adopted - bath2).max():.3e})")
+        ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
+        neigen = edio.read_state_list_restart(cfg, res1.table)
+        # 4. the second iteration through ed_solve
+        res2, counts, wall = _solve_once("config 2 DMFT loop 2 f64", cfg,
+                                         None)
+        print(f"[dmft]   neigen_sector from state_list.restart: "
+              f"{sorted(set(neigen.tolist()))} (loop 1: "
+              f"{cfg.lanc_nstates_sector}); loop 1 wall {loop1['wall']:.2f} "
+              f"s, {res1.n_matvecs} matvecs")
+        bad = _lanczos_nev(res2, neigen)
+        if bad:
+            fail(f"loop 2 did not take neigen from state_list.restart: {bad}")
+        if counts["B1"] <= 0:
+            fail("config 2 DMFT loop 2 did not launch B1")
+        obs = np.loadtxt(os.path.join(out, "observables_last.ed"))
+        dev_d = float(np.abs(obs[:cfg.norb] - ed.ed_get_dens()).max())
+        print(f"[dmft]   observables_last.ed dens vs ed_get_dens: {dev_d:.3e}"
+              f" (limit 1e-10)")
+        if not dev_d <= 1e-10:
+            fail(f"observables_last.ed off ed_get_dens by {dev_d:.3e}")
+        st = res2.diag.state_list.states[0]
+        sec = res2.table.sector(st.sector)
+        mv = KronMatvec(build_normal_sector_op(cfg, sec, res2.hloc, res2.um,
+                                               res2.bath),
+                        torch.device(DEVICE))
+        vals, _ = eigsh_lowest(mv, mv.dim, 1, tol=1e-14)
+        dev_e0 = abs(float(vals[0]) - res2.e0)
+        print(f"[dmft]   ground-state sector {sec.qn} dim {sec.dim}: "
+              f"KronMatvec e0 {vals[0]:.12f}, solve e0 {res2.e0:.12f}, "
+              f"|diff| {dev_e0:.3e}")
+        if not dev_e0 <= 1e-10:
+            fail(f"loop 2 e0 disagrees with KronMatvec ({dev_e0:.3e})")
+        delta2 = (WBAND / 2.0) ** 2 * ed.ed_get_gimp(axis="m")
+        err = float(np.sum(np.abs(delta2 - delta1)) / np.sum(np.abs(delta2)))
+        rel = float(np.abs(delta2 - delta1).max() / np.abs(delta1).max())
+        print(f"[dmft]   Δ loop 1 -> 2: sum|ΔΔ|/sum|Δ| {err:.4e}, max "
+              f"{rel:.4e} relative")
+        ed.ed_finalize_solver()
+    report["B1_launches_dmft"] = counts["B1"]
 
 
 def _observables() -> dict:
@@ -736,6 +902,7 @@ def kernel_report(report: dict) -> list:
              source=src + "row_gather.cu",
              replaces="edipack_tpu/ops/pallas_fused.py:237",
              launches=report["B1_launches"],
+             launches_dmft_loop2=report["B1_launches_dmft"],
              max_abs_err=max(s["err64"] for s in report["fused"]),
              ms=big["b1"], ms_back_to_back=big["b1_b2b"],
              plain_ms=big["b1_plain"],
@@ -795,7 +962,8 @@ def main() -> int:
     report: dict = {}
     t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernel", phase_kernel),
-                     ("golden", phase_golden), ("solve", phase_solve)):
+                     ("golden", phase_golden), ("solve", phase_solve),
+                     ("dmft", phase_dmft)):
         t0 = time.perf_counter()
         fn(report)
         print(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s",

@@ -185,7 +185,7 @@ class EDConfig:
     ed_batch_lanczos: bool = True
     ed_file_suffix: str = ""        # per-site suffix (ineq extension)
     ed_output_dir: str = "."        # where .ed text outputs are written
-    ed_write_files: bool = False    # text outputs: not supported yet
+    ed_write_files: bool = False    # write observables_*.ed etc. text files
     ed_joint_kron: str = "auto"     # superc/nonsu2 matvec (joint modes: not
     #                                 supported yet)
     ed_profile_dir: str = ""        # accepted and inert

@@ -2,7 +2,10 @@
 
 Both functions take plain Python / NumPy values, so a caller (or a test)
 can build an edipack_tpu solver and an edipack_tpu_torch solver from the
-same numbers.
+same numbers. Packed bath arrays share one layout in both packages, and so
+do the restart files (``hamiltonian.restart``, ``state_list.restart``,
+``sectors.restart``, ``xmu.restart``): ``ed_init_solver`` / ``ed_solve`` /
+``ed_search_variable`` read the ones edipack_tpu wrote, as they are.
 """
 from __future__ import annotations
 

@@ -14,10 +14,13 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from . import io as edio
 from .bath.dmft_bath import (array_to_bath, bath_to_array, get_bath_dimension,
                              init_bath)
-from .config import EDConfig, get_config
+from .bath.user import get_global_basis
+from .config import EDConfig, get_config, set_config
 from .device import resolve_device
+from .sectors import SectorTable
 from .solver.core import (SolveResult, check_supported, not_implemented,
                           solve_impurity)
 from .umatrix import build_umatrix
@@ -57,9 +60,6 @@ class EDSolver:
         self.result: Optional[SolveResult] = None
         self.neigen_sector_override = None
 
-    def _restart_file(self, name: str) -> str:
-        return name + self.cfg.ed_file_suffix + ".restart"
-
     # -- lifecycle ------------------------------------------------------
     def init_solver(self, bath_array: Optional[np.ndarray] = None
                     ) -> np.ndarray:
@@ -69,10 +69,10 @@ class EDSolver:
                 and np.any(np.asarray(bath_array) != 0):
             self.bath = array_to_bath(bath_array, self.cfg)
         else:
-            if os.path.exists(self._restart_file(self.cfg.hfile)):
-                raise not_implemented("bath restart files",
-                                      "DMFT loop and fit")
-            self.bath = init_bath(self.cfg)
+            # the default bath, overridden by <hfile><suffix>.restart when
+            # that file exists (reference init_dmft_bath)
+            self.bath = init_bath(self.cfg, restart_file=self.cfg.hfile
+                                  + self.cfg.ed_file_suffix + ".restart")
         return bath_to_array(self.bath)
 
     def set_hloc(self, hloc: np.ndarray) -> None:
@@ -99,14 +99,21 @@ class EDSolver:
             # neigen_sector persists between ed_solve calls,
             # ED_DIAG_NORMAL.f90:475-517)
             neigen = self.result.diag.neigen_sector
-        if neigen is None and os.path.exists(os.path.join(
-                self.cfg.ed_output_dir, self._restart_file("state_list"))):
-            raise not_implemented("state_list restart files",
-                                  "DMFT loop and fit")
+        sector_mask = None
+        if neigen is None or self.cfg.ed_sectors:
+            table = SectorTable(self.cfg)
+            if neigen is None:
+                # a previous run's state_list.restart seeds neigen_sector
+                neigen = edio.read_state_list_restart(self.cfg, table)
+            if self.cfg.ed_sectors:
+                sector_mask = edio.read_sectors_restart(self.cfg, table)
         um = build_umatrix(self.cfg)
         self.result = solve_impurity(self.cfg, self.hloc, um, self.bath,
                                      self.device, neigen_override=neigen,
+                                     sector_mask=sector_mask,
                                      flag_gf=flag_gf)
+        if self.cfg.ed_write_files:
+            edio.write_all_outputs(self.cfg, self.result)
         return self.result
 
     def finalize(self) -> None:
@@ -211,3 +218,127 @@ def ed_get_neigen_sector():
 
 def ed_set_neigen_sector(neigen):
     _S().neigen_sector_override = np.asarray(neigen, int)
+
+
+def ed_get_g0and(zeta, bath=None, axis="m", typ="n"):
+    """Evaluate the Anderson Weiss field; with an explicit packed ``bath``
+    array the evaluation uses that bath (and the current global config)
+    instead of the solved one (reference ed_get_g0and signature)."""
+    if bath is None:
+        return _R().get_g0and(zeta, axis, typ)
+    from .bath.functions import g0and_bath
+    cfg = get_config()
+    b = array_to_bath(np.asarray(bath, float), cfg, get_global_basis())
+    return g0and_bath(cfg, b, _S().hloc, np.asarray(zeta, complex))
+
+
+def ed_get_delta(zeta, bath=None, axis="m", typ="n"):
+    """Δ(z) of the solved bath, or of an explicit packed ``bath`` array."""
+    if bath is None:
+        return _R().get_delta(zeta, axis, typ)
+    from .bath.functions import delta_bath, fdelta_bath
+    cfg = get_config()
+    b = array_to_bath(np.asarray(bath, float), cfg, get_global_basis())
+    fn = delta_bath if typ == "n" else fdelta_bath
+    return fn(cfg, b, np.asarray(zeta, complex))
+
+
+# -- DMFT loop helpers --------------------------------------------------------
+
+
+def ed_chi2_fitgf(func, bath, ispin=1, iorb=None, fmpi=True):
+    """Bath fit on the packed user array (reference ed_chi2_fitgf,
+    ED_FIT/ED_BATH_FIT.f90:29-55), with the current global config
+    (``ed_read_input`` / ``set_config``), as edipack_tpu does. The χ² runs
+    on host CPU tensors whatever the solver's device (bath/fit.py)."""
+    from .bath.fit import chi2_fitgf
+    return chi2_fitgf(get_config(), np.asarray(func), np.asarray(bath, float),
+                      ispin=ispin, iorb=iorb, basis=get_global_basis())
+
+
+def ed_search_variable(var: float, ntmp: float, converged: bool):
+    """Chemical-potential search helper (reference ed_search_variable /
+    search_chemical_potential, ED_AUX_FUNX.f90:1228-1516): adjust ``var``
+    toward the target density cfg.nread given the measured density ``ntmp``."""
+    from .solver.mu_search import search_variable
+    return search_variable(get_config(), var, ntmp, converged)
+
+
+def ed_search_chemical_potential(xmu: float, ntmp: float, converged: bool):
+    """Adjust the chemical potential toward cfg.nread (reference
+    search_chemical_potential, ED_AUX_FUNX.f90:1360-1516)."""
+    return ed_search_variable(xmu, ntmp, converged)
+
+
+# DMFT-loop convergence helper (consumes dmft_error / nsuccess, the knobs the
+# reference exports for the user loop, doc/quickstart/02_dmft.f90:99-104)
+_conv_state = {"prev": None, "count": 0}
+
+
+def ed_check_convergence(func, threshold: Optional[float] = None,
+                         nsuccess: Optional[int] = None):
+    """Relative-change convergence check for the user's DMFT loop:
+    err = max |func - func_prev| / max(|func|, 1e-12); converged once err <
+    threshold (default cfg.dmft_error) for ``nsuccess`` (default
+    cfg.nsuccess) successive calls. Returns (err, converged)."""
+    cfg = get_config()
+    thr = cfg.dmft_error if threshold is None else threshold
+    need = cfg.nsuccess if nsuccess is None else nsuccess
+    f = np.asarray(func)
+    prev = _conv_state["prev"]
+    if prev is None or prev.shape != f.shape:
+        err = 1.0
+    else:
+        scale = max(float(np.abs(f).max()), 1e-12)
+        err = float(np.abs(f - prev).max()) / scale
+    _conv_state["prev"] = f.copy()
+    if err < thr:
+        _conv_state["count"] += 1
+    else:
+        _conv_state["count"] = 0
+    return err, _conv_state["count"] >= need
+
+
+def ed_reset_convergence() -> None:
+    _conv_state["prev"] = None
+    _conv_state["count"] = 0
+
+
+# -- suffix management, GFmatrix store, build-on-grid aliases ----------------
+
+
+def ed_set_suffix(suffix) -> None:
+    """Per-site file suffix (reference ed_set_suffix, ED_AUX_FUNX): integer
+    arguments are formatted like the reference's ineq-site suffix."""
+    s = f"_ineq{int(suffix):04d}" if isinstance(suffix, (int, np.integer)) \
+        else str(suffix)
+    set_config(get_config().replace(ed_file_suffix=s))
+    if _solver is not None:
+        _solver.cfg = _solver.cfg.replace(ed_file_suffix=s)
+
+
+def ed_reset_suffix() -> None:
+    ed_set_suffix("")
+
+
+def ed_read_impgmatrix(path: Optional[str] = None):
+    """Reload the Källén-Lehmann GF store written by a previous solve so
+    G/Σ/D can be re-evaluated on any grid without re-solving (reference
+    ed_read_ImpGMatrix -> read_GFmatrix, ED_GFMATRIX.f90:78-107)."""
+    from .solver.greens import GFMatrix
+    cfg = get_config()
+    gf = GFMatrix.load(path or os.path.join(
+        cfg.ed_output_dir, f"gfmatrix{cfg.ed_file_suffix}.npz"))
+    s = _S()
+    if s.result is not None:
+        s.result.gf = gf
+    s.loaded_gf = gf
+    return gf
+
+
+def ed_build_impg(zeta, axis="m"):
+    return ed_get_gimp(zeta, axis, typ="n")
+
+
+def ed_build_sigma(zeta, axis="m"):
+    return ed_get_sigma(zeta, axis, typ="n")

@@ -130,8 +130,12 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
     ``n_matvecs``."""
     device = matvec.device
     nev = min(nev, dim)
+    if stats is None:
+        stats = {}
+    stats.update(n_restarts=0, n_matvecs=0)
     if dim <= 128:
         # tiny spaces: materialize H by matvec columns and eigh directly
+        stats["n_matvecs"] = dim
         eye = torch.eye(dim, dtype=dtype, device=device)
         h = torch.stack([matvec(eye[i]) for i in range(dim)], dim=1)
         vals, vecs = np.linalg.eigh(h.cpu().numpy())
@@ -151,9 +155,6 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
         else torch.as_tensor(v0, dtype=dtype, device=device)
     if project is not None:
         v0 = project(v0)
-    if stats is None:
-        stats = {}
-    stats.update(n_restarts=0, n_matvecs=0)
 
     locked_vecs, locked_vals = [], []
     start = v0

@@ -61,11 +61,6 @@ def check_supported(cfg: EDConfig) -> None:
         raise not_implemented("rdm_flag", "extras")
     if not cfg.ed_total_ud:
         raise not_implemented("ed_total_ud=False", "extras")
-    if cfg.ed_write_files:
-        raise not_implemented("ed_write_files", "DMFT loop and fit")
-    if cfg.ed_sectors:
-        raise not_implemented("ed_sectors (sector restart files)",
-                              "DMFT loop and fit")
 
 
 @dataclass
@@ -210,6 +205,7 @@ def _normal_builders(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
 def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
                    bath: DmftBath, device: torch.device,
                    neigen_override: Optional[np.ndarray] = None,
+                   sector_mask: Optional[np.ndarray] = None,
                    flag_gf: bool = True) -> SolveResult:
     cfg.validate()
     check_supported(cfg)
@@ -219,7 +215,8 @@ def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
 
     with timer.phase("diagonalization"):
         diag = diagonalize(cfg, table, b.matvec_builder, b.dense_builder,
-                           device, neigen_override=neigen_override)
+                           device, neigen_override=neigen_override,
+                           sector_mask=sector_mask)
     gf = GFMatrix()
     if flag_gf:
         with timer.phase("greens_functions"):

@@ -223,8 +223,10 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
                 matvec_builder: Callable[[Sector], object],
                 dense_builder: Callable[[Sector], np.ndarray],
                 device: torch.device,
-                neigen_override: Optional[np.ndarray] = None) -> DiagResult:
-    """Sweep every sector of ``table`` (T = 0).
+                neigen_override: Optional[np.ndarray] = None,
+                sector_mask: Optional[np.ndarray] = None) -> DiagResult:
+    """Sweep every sector of ``table`` (T = 0), or those of
+    ``sector_mask`` (the ed_sectors restart, io.read_sectors_restart).
 
     ``matvec_builder(sec)``: device matvec callable with .dim/.device
     ``dense_builder(sec)``: dense sector H (dim <= lanc_dim_threshold)
@@ -234,6 +236,8 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
     if neigen_override is not None:
         neigen[:] = np.asarray(neigen_override, int)
     twin_mask = table.twin_mask()
+    if sector_mask is not None:
+        twin_mask = twin_mask & np.asarray(sector_mask, bool)
     sl = StateList(beta=cfg.beta)
     evals_by_sector: Dict[int, np.ndarray] = {}
 

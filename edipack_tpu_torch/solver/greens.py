@@ -60,6 +60,41 @@ class GFMatrix:
             return (np.where(sing, 0.0, w[None, :]) / den).sum(axis=1)
         return (w[None, :] / den).sum(axis=1)
 
+    def eval_tau(self, key: Tuple, tau: np.ndarray, beta: float
+                 ) -> np.ndarray:
+        """Fermionic imaginary-time evaluation on 0 <= tau <= beta:
+        G(tau) = -Σ_n w_n e^{-tau p_n} / (1 + e^{-beta p_n}), computed in
+        the overflow-stable logaddexp form."""
+        w, p = self.packed(key)
+        tau = np.atleast_1d(np.asarray(tau, float))
+        if len(w) == 0:
+            return np.zeros(len(tau))
+        ex = -np.logaddexp(tau[:, None] * p[None, :],
+                           (tau[:, None] - beta) * p[None, :])
+        return -(np.real(w)[None, :] * np.exp(ex)).sum(axis=1)
+
+    # -- persistence (reference write/read_GFmatrix, ED_GFMATRIX.f90:78-107):
+    # one npz, two arrays per channel named repr(key) + "|w" / "|p", the
+    # layout edipack_tpu writes and reads
+    def save(self, path: str) -> None:
+        payload = {}
+        for key, lst in self.channels.items():
+            skey = repr(key)
+            payload[skey + "|w"] = np.concatenate([w for w, _ in lst])
+            payload[skey + "|p"] = np.concatenate([p for _, p in lst])
+        np.savez(path, **payload)
+
+    @classmethod
+    def load(cls, path: str) -> "GFMatrix":
+        from ast import literal_eval
+        gf = cls()
+        with np.load(path) as data:
+            for name in data.files:
+                if name.endswith("|w"):
+                    gf.add(literal_eval(name[:-2]), data[name],
+                           data[name[:-2] + "|p"])
+        return gf
+
 
 def _dense_moments(h: np.ndarray, phi: np.ndarray):
     evals, evecs = np.linalg.eigh(h)

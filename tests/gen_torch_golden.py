@@ -1,8 +1,8 @@
 """Write the edipack_tpu reference numbers that edipack_tpu_torch is held to
 on the card (chip_smoke.py) and in the slow CPU tests
-(tests/test_torch_solve.py, tests/test_torch_f32.py).
+(tests/test_torch_solve.py, tests/test_torch_f32.py, tests/test_torch_dmft.py).
 
-    JAX_PLATFORMS=cpu python tests/gen_torch_golden.py [float64] [float32]
+    JAX_PLATFORMS=cpu python tests/gen_torch_golden.py [float64] [float32] [dmft]
 
 Runs the JAX package's ed_solve on the CPU at norb=2, nbath=4 with the
 two-orbital Kanamori parameters of bench.py and writes, for each precision
@@ -22,6 +22,17 @@ named (both by default):
   same configuration solved in f64 (twins on, G and Σ on the same grid):
   the JAX f32 solve lies 1.1e-4 from that e0 at this size, so the f32
   checks hold the port to both.
+
+* dmft: tests/data/torch_port_golden_dmft_n2b4.json, two iterations of
+  the Bethe-lattice DMFT loop at the same configuration with
+  ``cg_scheme="delta"`` and ``cg_method=1`` (about 4 min): solve, Δ =
+  (D/2)² G with D = 1, the χ² fit of the bath to Δ, and again from the
+  fitted bath in the same solver. For each loop: e0, dens, docc, G and Σ,
+  and the packed bath the fit returned. No mixing: each loop's Δ is (D/2)²
+  times its own G. The fit is L-BFGS-B (``cg_method=1``), which stops on
+  its own criterion: the default CG stops at cg_niter here, and the point
+  where it stops moves with the last bits of its target
+  (tests/test_torch_fit.py), so no golden number could hold it.
 
 Not collected by pytest (the file name does not start with ``test_``).
 """
@@ -44,6 +55,11 @@ from edipack_tpu.config import default_config  # noqa: E402
 
 OUT = os.path.join(HERE, "data", "torch_port_golden_n2b4.json")
 OUT_F32 = os.path.join(HERE, "data", "torch_port_golden_f32_n2b4.json")
+OUT_DMFT = os.path.join(HERE, "data", "torch_port_golden_dmft_n2b4.json")
+# the DMFT golden: Bethe lattice of half-bandwidth D, two loops
+DMFT = dict(cg_scheme="delta", cg_method=1)
+WBAND = 1.0
+DMFT_LOOPS = 2
 CONFIG = dict(norb=2, nbath=4, nspin=1, uloc=[2.0, 2.0], ust=1.2, jh=0.2,
               jx=0.15, jp=0.15)
 NMATS = 32
@@ -99,9 +115,55 @@ def write_golden(precision):
     print(f"wrote {path}: e0 {res['e0']}")
 
 
-def main(precisions):
-    for precision in precisions or ("float64", "float32"):
-        write_golden(precision)
+def dmft_loops(mod, cfg, nloops=DMFT_LOOPS, **init):
+    """``nloops`` Bethe-lattice DMFT iterations of ``cfg`` through the
+    ``ed_*`` API of ``mod`` (edipack_tpu.main or edipack_tpu_torch.main,
+    whose config module must hold ``cfg`` as the current one): solve, then
+    fit the bath to Δ = (D/2)² G. ``init``: extra ed_init_solver arguments.
+    Returns one record per loop."""
+    z = 1j * np.pi / cfg.beta * (2 * np.arange(NMATS) + 1)
+    bath = mod.ed_init_solver(cfg=cfg, **init)
+    mod.ed_set_hloc(np.zeros((1, 1, cfg.norb, cfg.norb)))
+    out = []
+    for _ in range(nloops):
+        res = mod.ed_solve(bath)
+        delta = (WBAND / 2.0) ** 2 * mod.ed_get_gimp(axis="m")
+        bath = mod.ed_chi2_fitgf(delta, bath, ispin=1)
+        out.append(dict(e0=float(res.e0), dens=np.asarray(res.dens),
+                        docc=np.asarray(res.docc), gimp=mod.ed_get_gimp(z),
+                        sigma=mod.ed_get_sigma(z), bath=np.asarray(bath)))
+    mod.ed_finalize_solver()
+    return out
+
+
+def write_dmft_golden():
+    import subprocess
+    from edipack_tpu.config import set_config
+    config = dict(CONFIG, **DMFT)
+    cfg = set_config(default_config(**config, ed_verbose=0))
+    loops = dmft_loops(ed, cfg)
+    commit = subprocess.run(["git", "log", "-1", "--format=%h", "--",
+                             "edipack_tpu"], capture_output=True, text=True,
+                            cwd=os.path.dirname(HERE)).stdout.strip()
+    out = dict(source=f"edipack_tpu (last commit {commit}) on the CPU: "
+                      f"{DMFT_LOOPS} Bethe DMFT loops through ed_solve (f64 "
+                      f"KronMatvec, exact GF) and ed_chi2_fitgf, D = "
+                      f"{WBAND}, no mixing", config=config, beta=cfg.beta,
+               nmats=NMATS, wband=WBAND, lfit=cfg.lfit,
+               loops=[{k: pairs(v) if k in ("gimp", "sigma") else
+                       (v.tolist() if isinstance(v, np.ndarray) else v)
+                       for k, v in rec.items()} for rec in loops])
+    with open(OUT_DMFT, "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(f"wrote {OUT_DMFT}: e0 {[r['e0'] for r in loops]}")
+
+
+def main(modes):
+    for mode in modes or ("float64", "float32"):
+        if mode == "dmft":
+            write_dmft_golden()
+        else:
+            write_golden(mode)
 
 
 if __name__ == "__main__":

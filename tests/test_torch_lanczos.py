@@ -97,6 +97,32 @@ def test_eigsh_tiny_dense_shortcut():
     assert np.abs(vals - ref).max() <= EV_TOL and vecs.shape[0] == 2
 
 
+def test_solve_with_lanczos_sectors_under_129_states(tmp_path, monkeypatch):
+    """lanc_dim_threshold below 128 sends sectors of 65-128 states to
+    eigsh_lowest's dense shortcut, which must fill the solve's stats (a
+    KeyError before): the solve against edipack_tpu's at that threshold."""
+    import edipack_tpu.main as jed
+    import edipack_tpu_torch.main as ted
+    monkeypatch.chdir(tmp_path)
+    kw = dict(norb=1, nbath=4, nspin=1, lanc_dim_threshold=64, ed_verbose=0)
+    jcfg = j_config(**kw)
+    cfg = config_from_jax(dataclasses.asdict(jcfg))
+    z = 1j * np.pi / jcfg.beta * (2 * np.arange(16) + 1)
+    jed.ed_init_solver(cfg=jcfg)
+    jed.ed_set_hloc(np.zeros((1, 1, 1, 1)))
+    jres = jed.ed_solve()
+    jg = jed.ed_get_gimp(z)
+    jed.ed_finalize_solver()
+    ted.ed_init_solver(cfg=cfg, device="cpu")
+    ted.ed_set_hloc(np.zeros((1, 1, 1, 1)))
+    res = ted.ed_solve()
+    stats = res.diag.lanczos_stats
+    assert stats and all(n > 0 for _, _, n in stats.values())
+    assert abs(res.e0 - jres.e0) <= EV_TOL
+    assert np.abs(ted.ed_get_gimp(z) - jg).max() <= 1e-8
+    ted.ed_finalize_solver()
+
+
 def test_lanczos_tridiag_vs_jax(sector):
     jop, op, v0, _ = sector
     m = 12

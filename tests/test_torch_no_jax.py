@@ -11,6 +11,9 @@ sys.path.insert(0, {root!r})
 import edipack_tpu_torch, edipack_tpu_torch.main, edipack_tpu_torch.convert
 import edipack_tpu_torch.ops.fused_matvec, edipack_tpu_torch.ops._build
 import edipack_tpu_torch.ops.kron_tiles
+import edipack_tpu_torch.bath.fit, edipack_tpu_torch.bath.user
+import edipack_tpu_torch.io, edipack_tpu_torch.solver.mu_search
+import edipack_tpu_torch.examples.hm_bethe
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "edipack_tpu"))
 print(",".join(bad))

@@ -161,7 +161,7 @@ def test_cuda_device_required(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("ed_mode", "superc"), ("ed_finite_temp", True), ("chispin_flag", True),
-    ("rdm_flag", True), ("ed_write_files", True), ("ed_sectors", True),
+    ("rdm_flag", True), ("ed_total_ud", False), ("bath_type", "replica"),
 ])
 def test_unported_inputs_raise(field, value):
     kw = dict(norb=1, nbath=2, nspin=1)
