@@ -42,11 +42,28 @@ non-zero on any fault):
           (its first iteration), the restart files written, a new solver
           started from hamiltonian.restart and state_list.restart, and its
           ed_solve through B1 with ed_write_files on, checked like the first
+  extras  the normal-mode extras through B1, in f64: (a) the n2b4 extras
+          golden (tests/data/torch_port_golden_extras_n2b4.json, from
+          edipack_tpu): a T=0 solve with the four χ flags and rdm_flag (χ
+          on ν_1..ν_32 of β = 20, RDM, a reduced RDM, energies, sp_dm) and
+          its Krylov
+          state complexity; three finite-T solves of one solver (budgets
+          and neigen_sector exact, zeta, e0, dens, G, histogram_states.ed
+          as text); an ed_total_ud=False solve; a runtime two-body term;
+          each with B1 launches > 0; (b) config 2 cold with the χ flags and
+          rdm_flag, then ed_build_krylov_state_complexity, held by
+          identities B1 does not enter: each χ channel's + weights sum to
+          Σ_i w_i ‖Oψ_i‖² (and, for spin and dens, to (n - 2d)/4 and n + 2d
+          of the solve's dens and docc), the first moments of the spin and
+          pair channels of orbital 0 against KronMatvec, the RDM's trace,
+          Hermiticity, eigenvalues and diagonal, and the Krylov
+          distributions' normalization and K(0) = 0
 
 Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
 power-step entry for B3, the row-gather Lanczos for B4, and for B1 also
-config 2's second DMFT iteration) runs with every launch counter set to 0
-just before it and read just after. The line before
+config 2's second DMFT iteration, the extras golden's solves and Krylov
+chains, and config 2's extras solve with its Krylov chains) runs with
+every launch counter set to 0 just before it and read just after. The line before
 the last is the kernel report (JSON), printed only once every phase has
 run: ``launches`` from those paths, ``max_abs_err``, ``ms`` (L2 flushed),
 ``ms_back_to_back``, ``plain_ms`` and ``library_ms`` (the faster of the
@@ -74,6 +91,7 @@ DATA = os.path.join(ROOT, "tests", "data")
 GOLDEN = os.path.join(DATA, "torch_port_golden_n2b4.json")
 GOLDEN_F32 = os.path.join(DATA, "torch_port_golden_f32_n2b4.json")
 GOLDEN_DMFT = os.path.join(DATA, "torch_port_golden_dmft_n2b4.json")
+GOLDEN_EXTRAS = os.path.join(DATA, "torch_port_golden_extras_n2b4.json")
 KANAMORI = dict(uloc=[2.0, 2.0], ust=1.2, jh=0.2, jx=0.15, jp=0.15)
 # tests/test_pallas_kron.py's sector model
 KRON_SMALL = dict(uloc=[2.0, 1.5], ust=0.7, jh=0.1, jx=0.1, jp=0.1, xmu=0.2)
@@ -99,6 +117,15 @@ E0_F32_RTOL = 1e-5        # config 2: f32 e0 vs f64 e0, relative
 TOL_DMFT = dict(e0=1e-7, dens=1e-7, docc=1e-7, gimp=1e-7, sigma=1e-5,
                 bath=1e-7)
 WBAND = 1.0               # Bethe lattice half-bandwidth D
+# the extras golden: f64 on both sides, the solve golden's TOL; χ relative
+# to its largest value; budgets and neigen_sector exact
+TOL_EXTRAS = dict(TOL, chi=1e-8, sp_dm=1e-8, rdm=1e-8, krylov=1e-8,
+                  zeta=1e-10)
+# config 2 with the extras on: identities that B1 does not enter
+IDENTITY_RTOL = 1e-8      # χ sum rules and first moments, RDM vs dens/docc
+RDM_TOL = 1e-10           # RDM trace, Hermiticity, eigenvalues >= -RDM_TOL
+CHI_FLAGS = dict(chispin_flag=True, chidens_flag=True, chipair_flag=True,
+                 chiexct_flag=True, rdm_flag=True)
 # Matsubara grid on which config 2's f32 G is held to its f64 G at
 # TOL_F32_EXACT, as the f32 golden file's (tests/test_torch_f32.py): on the
 # solve's own grid (beta = 1000) the lowest frequencies magnify the f32
@@ -503,6 +530,11 @@ def _z(beta: float) -> np.ndarray:
     return 1j * np.pi / beta * (2 * np.arange(NMATS) + 1)
 
 
+def _cplx(a) -> np.ndarray:
+    """(..., 2) [re, im] pairs of a golden file -> complex."""
+    return np.asarray(a)[..., 0] + 1j * np.asarray(a)[..., 1]
+
+
 def _check_close(what: str, got, want, tol: float) -> None:
     if np.shape(got) != np.shape(want):
         fail(f"golden {what}: shape {np.shape(got)}, expected "
@@ -514,9 +546,8 @@ def _check_close(what: str, got, want, tol: float) -> None:
 
 
 def _check_all(got: dict, ref: dict, tol: dict, tag: str = "") -> None:
-    cplx = lambda a: np.asarray(a)[..., 0] + 1j * np.asarray(a)[..., 1]
     for k in ("e0", "evals", "dens", "docc", "energies", "gimp", "sigma"):
-        want = cplx(ref[k]) if k in ("gimp", "sigma") else ref[k]
+        want = _cplx(ref[k]) if k in ("gimp", "sigma") else ref[k]
         _check_close(k + tag, got[k], want, tol["e0" if k == "evals" else k])
 
 
@@ -728,13 +759,12 @@ def _dmft_golden(report: dict) -> None:
     reset_counts()
     loops = _dmft_loops(cfg, len(gold["loops"]))
     launched = read_counts()["B1"]
-    cplx = lambda a: np.asarray(a)[..., 0] + 1j * np.asarray(a)[..., 1]
     for k, (got, want) in enumerate(zip(loops, gold["loops"])):
         tol = dict(TOL if k == 0 else TOL_DMFT, bath=TOL_DMFT["bath"])
         print(f"[dmft] golden loop {k + 1}: e0 {got['e0']:.12f} (ref "
               f"{want['e0']:.12f}), fit {got['fit_s']:.2f} s")
         for key in ("e0", "dens", "docc", "gimp", "sigma", "bath"):
-            ref = cplx(want[key]) if key in ("gimp", "sigma") else want[key]
+            ref = _cplx(want[key]) if key in ("gimp", "sigma") else want[key]
             _check_close(f"{key} loop {k + 1}", got[key], ref, tol[key])
     print(f"[dmft] golden B1 launches {launched}")
     if launched <= 0:
@@ -843,6 +873,428 @@ def phase_dmft(report: dict) -> None:
     report["B1_launches_dmft"] = counts["B1"]
 
 
+# ---------------------------------------------------------------------------
+# phase extras: susceptibilities, impurity RDM, Krylov complexity, finite T,
+# per-orbital sectors and runtime two-body terms
+# ---------------------------------------------------------------------------
+
+
+def _extras_start(gold: dict, config: dict, terms=()):
+    """A solver of ``config`` (made the current config) on the card through
+    B1, with the golden file's Hloc and the runtime two-body ``terms``."""
+    import edipack_tpu_torch as ed
+    cfg = ed.set_config(ed.default_config(**config, ed_verbose=0,
+                                          ed_fused_matvec="always"))
+    bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+    ed.ed_set_hloc(np.asarray(gold["hloc"]).reshape(1, 1, 2, 2))
+    for t in terms:
+        ed.ed_add_twobody_operator(*t)
+    return cfg, bath
+
+
+def _extras_solve(label: str, bath, launches: list):
+    """ed_solve with the counters reset just before; its B1 launches are
+    appended to ``launches`` and must be above 0."""
+    import torch
+    import edipack_tpu_torch as ed
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ed.ed_solve(bath)
+    torch.cuda.synchronize()
+    n = read_counts()["B1"]
+    launches.append(n)
+    print(f"[extras] {label}: e0 {res.e0:.12f}, {time.perf_counter() - t0:.2f}"
+          f" s, {res.n_matvecs} matvecs, B1 launches {n}")
+    if n <= 0:
+        fail(f"extras golden {label}: no B1 launch")
+    return res
+
+
+def _bosonic(beta: float) -> np.ndarray:
+    """ν_1 .. ν_NMATS (ν_0 left out, as the golden file does)."""
+    return 1j * 2 * np.pi / beta * np.arange(1, NMATS + 1)
+
+
+def _check_rel(what: str, got, want, tol: float) -> None:
+    """``got`` against ``want`` relative to the largest |want|."""
+    scale = float(np.abs(np.asarray(want)).max())
+    if not scale > 0:
+        fail(f"golden {what}: the reference is zero")
+    _check_close(what + " (rel)", np.asarray(got) / scale,
+                 np.asarray(want) / scale, tol)
+
+
+def _extras_t0(gold: dict, launches: list) -> None:
+    """The T=0 solve with the four χ flags and rdm_flag, then the Krylov
+    state complexity."""
+    import edipack_tpu_torch as ed
+    t0 = gold["t0"]
+    cfg, bath = _extras_start(gold, dict(gold["config"], **t0["config"]))
+    if not np.array_equal(bath, np.asarray(t0["bath"])):
+        fail("extras golden: the default bath differs from the file's")
+    res = _extras_solve("T=0 with chi and rdm", bath, launches)
+    print(f"[extras]   phases " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in res.timings.items()))
+    reset_counts()
+    kr = ed.ed_build_krylov_state_complexity()
+    n = read_counts()["B1"]
+    print(f"[extras]   Krylov state complexity: B1 launches {n}")
+    if n <= 0:
+        fail("extras golden: the Krylov chains launched no B1")
+    launches.append(n)
+    tol = TOL_EXTRAS
+    _check_close("t0 e0", res.e0, t0["e0"], tol["e0"])
+    _check_close("t0 dens", res.dens, t0["dens"], tol["dens"])
+    _check_close("t0 docc", res.docc, t0["docc"], tol["docc"])
+    _check_close("t0 energies", [ed.ed_get_epot(), ed.ed_get_eint(),
+                                 ed.ed_get_ehartree(), ed.ed_get_eknot()],
+                 t0["energies"], tol["energies"])
+    _check_close("t0 sp_dm", np.real(ed.ed_get_sp_dm()), t0["sp_dm"],
+                 tol["sp_dm"])
+    # the golden file's χ grid: see tests/gen_torch_golden.py CHI_BETA_GRID
+    z = _bosonic(gold["chi_beta_grid"])
+    for kind, want in t0["chi"].items():
+        _check_rel(f"t0 chi {kind}", ed.ed_get_chi(kind, z), _cplx(want),
+                   tol["chi"])
+    _check_close("t0 rdm", ed.ed_get_rdm(), t0["rdm"], tol["rdm"])
+    _check_close("t0 reduced rdm", ed.ed_get_reduced_rdm(t0["reduced_mask"]),
+                 t0["reduced_rdm"], tol["rdm"])
+    for field, want in t0["krylov"].items():
+        got = getattr(kr, field)
+        for key, ref in want.items():
+            op, s, o = key.split(",")
+            _check_close(f"t0 {field[:7]} {key}", got[(op, int(s), int(o))],
+                         ref, tol["krylov"])
+    ed.ed_finalize_solver()
+
+
+def _extras_finite_t(gold: dict, launches: list) -> None:
+    """The finite-T sequence of one solver: budgets and neigen_sector
+    exact, zeta, e0, dens and G, and histogram_states.ed as text."""
+    import tempfile
+    import edipack_tpu_torch as ed
+    ft = gold["finite_t"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_extras_") as out:
+        cfg, bath = _extras_start(gold, dict(
+            gold["config"], **ft["config"], ed_write_files=True,
+            ed_output_dir=out))
+        z = _z(cfg.beta)
+        for k, want in enumerate(ft["solves"]):
+            res = _extras_solve(f"finite T solve {k + 1}", bath, launches)
+            budget = res.cfg.lanc_nstates_total      # the budget it took
+            got_total = int(res.diag.lanc_nstates_total)
+            print(f"[extras]   budget {budget} (file {want['budget_in']}), "
+                  f"kept {len(res.diag.state_list)}, next budget "
+                  f"{got_total} (file {want['lanc_nstates_total']})")
+            if budget != want["budget_in"] \
+                    or got_total != want["lanc_nstates_total"]:
+                fail(f"finite T solve {k + 1}: budgets differ")
+            if not np.array_equal(res.diag.neigen_sector,
+                                  want["neigen_sector"]):
+                fail(f"finite T solve {k + 1}: neigen_sector differs")
+            _check_close(f"ft{k + 1} zeta (rel)", res.diag.zeta / want["zeta"],
+                         1.0, TOL_EXTRAS["zeta"])
+            _check_close(f"ft{k + 1} e0", res.e0, want["e0"], TOL["e0"])
+            _check_close(f"ft{k + 1} dens", res.dens, want["dens"],
+                         TOL["dens"])
+            _check_close(f"ft{k + 1} gimp", ed.ed_get_gimp(z),
+                         _cplx(want["gimp"]), TOL["gimp"])
+        with open(os.path.join(out, "histogram_states.ed")) as fh:
+            hist = fh.read()
+    print(f"[extras]   histogram_states.ed: {len(hist.splitlines())} lines, "
+          f"{'as' if hist == ft['histogram'] else 'NOT as'} the file's")
+    if hist != ft["histogram"]:
+        fail("histogram_states.ed differs from the golden text")
+    ed.ed_finalize_solver()
+
+
+def _extras_simple(gold: dict, part: str, config: dict, terms,
+                   launches: list) -> None:
+    import edipack_tpu_torch as ed
+    want = gold[part]
+    cfg, bath = _extras_start(gold, config, terms)
+    res = _extras_solve(part, bath, launches)
+    _check_close(f"{part} e0", res.e0, want["e0"], TOL["e0"])
+    _check_close(f"{part} dens", res.dens, want["dens"], TOL["dens"])
+    if part == "total_ud":
+        _check_close(f"{part} docc", res.docc, want["docc"], TOL["docc"])
+        _check_close(f"{part} gimp",
+                     ed.ed_get_gimp(_z(cfg.beta)),
+                     _cplx(want["gimp"]), TOL["gimp"])
+    ed.ed_finalize_solver()
+
+
+def _extras_golden(report: dict) -> None:
+    """(a) the n2b4 extras golden through B1."""
+    with open(GOLDEN_EXTRAS) as fh:
+        gold = json.load(fh)
+    launches: list = []
+    _extras_t0(gold, launches)
+    _extras_finite_t(gold, launches)
+    _extras_simple(gold, "total_ud", dict(gold["config"],
+                                          **gold["total_ud"]["config"]),
+                   (), launches)
+    _extras_simple(gold, "twobody", gold["config"],
+                   [tuple(t) for t in gold["twobody"]["terms"]], launches)
+    print(f"[extras] golden B1 launches per solve (the T=0 solve, its Krylov "
+          f"chains, the finite-T solves, ed_total_ud=False, the two-body "
+          f"term): {launches}")
+    report["B1_launches_extras_golden"] = int(sum(launches))
+
+
+def _chi_norms(res) -> dict:
+    """Σ_i w_i ‖O ψ_i‖² for every χ channel that build_chi_normal adds
+    with a + sign: the operators applied to the kept states on the card,
+    with no Lanczos chain and no B1."""
+    import torch
+    from edipack_tpu_torch.fock import occupations
+    from edipack_tpu_torch.ops.sector_ops import spin_axis_op
+    from edipack_tpu_torch.solver.chi import _diag_op_apply, _hop_axis_apply
+    cfg, table = res.cfg, res.table
+    norb, ns = cfg.norb, table.dims.ns
+    w = res.diag.state_list.boltzmann_weights()
+    out: dict = {}
+
+    def add(key, phi, wi):
+        out[key] = out.get(key, 0.0) + wi * float(torch.sum(phi * phi))
+
+    for wi, st in zip(w, res.diag.state_list):
+        sec = table.sector(st.sector)
+        v3 = st.vector.reshape(sec.dim_ph, sec.dim_dw, sec.dim_up)
+        occ_u = occupations(sec.ups, ns).astype(float)[:, :norb]
+        occ_d = occupations(sec.dws, ns).astype(float)[:, :norb]
+        for a in range(norb):
+            add(("spin", a, a), _diag_op_apply(v3, 0.5 * occ_u[:, a],
+                                               -0.5 * occ_d[:, a]), wi)
+            add(("dens", a, a), _diag_op_apply(v3, occ_u[:, a],
+                                               occ_d[:, a]), wi)
+            for kind, ups in (("c", table.c_sector), ("cdg",
+                                                      table.cdg_sector)):
+                mid = ups(st.sector, 0)
+                tgt = ups(mid, 1) if mid is not None else None
+                if tgt is None:
+                    continue
+                m, t = table.sector(mid), table.sector(tgt)
+                phi = spin_axis_op(m.dws, t.dws, ns, kind, a, 1).apply(
+                    spin_axis_op(sec.ups, m.ups, ns, kind, a, 2).apply(v3))
+                add(("pair", a, a), phi, wi)
+        for a in range(norb):
+            for b in range(a + 1, norb):
+                for key, s_dw in (("exct_s", 1.0), ("exct_tz", -1.0)):
+                    for i, j in ((a, b), (b, a)):
+                        add((key, a, b),
+                            _hop_axis_apply(v3, sec.ups, ns, i, j, 2)
+                            + s_dw * _hop_axis_apply(v3, sec.dws, ns, i, j,
+                                                     1), wi)
+                for s_c, s_d, ax_c, ax_d in ((0, 1, 2, 1), (1, 0, 1, 2)):
+                    mid = table.c_sector(st.sector, s_c)
+                    tgt = table.cdg_sector(mid, s_d) \
+                        if mid is not None else None
+                    if tgt is None:
+                        continue
+                    m, t = table.sector(mid), table.sector(tgt)
+                    src_b = sec.ups if s_c == 0 else sec.dws
+                    mid_b = m.ups if s_c == 0 else m.dws
+                    mid_d = m.dws if s_c == 0 else m.ups
+                    tgt_d = t.dws if s_c == 0 else t.ups
+                    phi = spin_axis_op(mid_d, tgt_d, ns, "cdg", a,
+                                       ax_d).apply(spin_axis_op(
+                                           src_b, mid_b, ns, "c", b,
+                                           ax_c).apply(v3))
+                    add(("exct_t", a, b), phi, wi)
+    return out
+
+
+def _plus_weights(chi, key) -> float:
+    """The weights of ``key`` that build_chi_normal adds with a + sign: the
+    first half of each add of a Hermitian channel (spin, dens: + and -
+    poles), all of them for pair and the exciton channels."""
+    herm = key[0] in ("spin", "dens")
+    return float(sum(np.real(wt[:len(wt) // 2] if herm else wt).sum()
+                     for wt, _ in chi.channels[key]))
+
+
+def _first_moment(res, key) -> tuple:
+    """Σ weight × pole of χ channel ``key`` (the + half of a Hermitian
+    channel), against Σ_i w_i (<φ_i|H|φ_i> - E_i <φ_i|φ_i>) with each φ_i
+    taken through KronMatvec of its target sector (not B1): for spin
+    (a, a) the Sz_a excitation in the state's own sector; for pair (a, a),
+    whose store holds the lesser c_a↓c_a↑ (poles E_n - E_i) and the greater
+    c†c† (poles E_i - E_n) together, the lesser moment minus the greater
+    one. Returns (store, KronMatvec, scale): the scale is the sum of the
+    magnitudes of the terms, since the two pair moments nearly cancel
+    where the model is particle-hole symmetric."""
+    import torch
+    from edipack_tpu_torch.fock import occupations
+    from edipack_tpu_torch.models.normal import build_normal_sector_op
+    from edipack_tpu_torch.ops.matvec import KronMatvec
+    from edipack_tpu_torch.ops.sector_ops import spin_axis_op
+    from edipack_tpu_torch.solver.chi import _diag_op_apply
+    cfg, table = res.cfg, res.table
+    ns, a = table.dims.ns, key[1]
+    dev = torch.device(DEVICE)
+    w = res.diag.state_list.boltzmann_weights()
+    kron: dict = {}
+
+    def moment(isec, phi):
+        if isec not in kron:
+            kron[isec] = KronMatvec(build_normal_sector_op(
+                cfg, table.sector(isec), res.hloc, res.um, res.bath), dev)
+        f = phi.reshape(-1)
+        return float(f @ kron[isec](f)), float(f @ f)
+
+    want = scale = 0.0
+    for wi, st in zip(w, res.diag.state_list):
+        sec = table.sector(st.sector)
+        v3 = st.vector.reshape(sec.dim_ph, sec.dim_dw, sec.dim_up)
+        if key[0] == "spin":
+            occ_u = occupations(sec.ups, ns).astype(float)[:, a]
+            occ_d = occupations(sec.dws, ns).astype(float)[:, a]
+            hphi, nphi = moment(st.sector, _diag_op_apply(
+                v3, 0.5 * occ_u, -0.5 * occ_d))
+            want += wi * (hphi - st.energy * nphi)
+            scale += abs(wi * (hphi - st.energy * nphi))
+            continue
+        for kind, step, sign in (("c", table.c_sector, 1.0),
+                                 ("cdg", table.cdg_sector, -1.0)):
+            mid = step(st.sector, 0)
+            tgt = step(mid, 1) if mid is not None else None
+            if tgt is None:
+                continue
+            m, t = table.sector(mid), table.sector(tgt)
+            phi = spin_axis_op(m.dws, t.dws, ns, kind, a, 1).apply(
+                spin_axis_op(sec.ups, m.ups, ns, kind, a, 2).apply(v3))
+            hphi, nphi = moment(tgt, phi)
+            want += sign * wi * (hphi - st.energy * nphi)
+            scale += abs(wi * (hphi - st.energy * nphi))
+    herm = key[0] == "spin"
+    got = 0.0
+    for wt, p in res.chi.channels[key]:
+        half = len(wt) // 2 if herm else len(wt)
+        got += float(np.real(wt[:half]) @ p[:half])
+    return got, want, scale
+
+
+def _rdm_checks(res) -> None:
+    """Trace 1, Hermitian, eigenvalues >= -RDM_TOL; its diagonal gives the
+    solve's dens and docc."""
+    rho = np.asarray(res.rdm)
+    norb = res.cfg.norb
+    nimp = 1 << norb
+    idx = np.arange(nimp * nimp)
+    iu, idw = idx % nimp, idx // nimp
+    diag = np.diag(rho)
+    ev = np.linalg.eigvalsh(0.5 * (rho + rho.T))
+    dens = np.array([diag @ (((iu >> a) & 1) + ((idw >> a) & 1))
+                     for a in range(norb)])
+    docc = np.array([diag @ (((iu >> a) & 1) * ((idw >> a) & 1))
+                     for a in range(norb)])
+    tr, herm = abs(np.trace(rho) - 1.0), float(np.abs(rho - rho.T).max())
+    dd = float(np.abs(dens - res.dens).max())
+    dc = float(np.abs(docc - res.docc).max())
+    print(f"[extras]   RDM {rho.shape}: |trace - 1| {tr:.3e}, Hermiticity "
+          f"{herm:.3e}, lowest eigenvalue {ev[0]:.3e} (limit {RDM_TOL}); "
+          f"diagonal vs dens {dd:.3e}, vs docc {dc:.3e} (limit "
+          f"{IDENTITY_RTOL})")
+    if not (tr <= RDM_TOL and herm <= RDM_TOL and ev[0] >= -RDM_TOL
+            and dd <= IDENTITY_RTOL and dc <= IDENTITY_RTOL):
+        fail("config 2 RDM identities")
+
+
+def _extras_config2(report: dict) -> None:
+    """(b) config 2 at full width with the χ flags and rdm_flag, then the
+    Krylov state complexity; held by identities that B1 does not enter."""
+    import torch
+    import edipack_tpu_torch as ed
+    from edipack_tpu_torch.solver import core
+    cfg = ed.default_config(norb=2, nbath=6, nspin=1, ed_verbose=0,
+                            **KANAMORI, **CHI_FLAGS)
+    bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+    ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
+    # B1 launches of the χ phase: read around build_chi_normal
+    chi_counts: dict = {}
+    build_chi = core.build_chi_normal
+
+    def counted(*args, **kw):
+        before = read_counts()["B1"]
+        try:
+            return build_chi(*args, **kw)
+        finally:
+            chi_counts["B1"] = read_counts()["B1"] - before
+
+    core.build_chi_normal = counted
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, counts, wall = _solve_once("config 2 f64 cold, chi and rdm",
+                                        cfg, bath)
+    finally:
+        core.build_chi_normal = build_chi
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[extras]   B1 launches: solve {counts['B1']} (of them the chi "
+          f"phase {chi_counts['B1']}); peak device memory {peak:.2f} GiB")
+    if chi_counts["B1"] <= 0:
+        fail("config 2 chi phase launched no B1")
+    # sum rules
+    norms = _chi_norms(res)
+    dens, docc = res.dens, res.docc
+    worst = 0.0
+    for key, ref in sorted(norms.items()):
+        got = _plus_weights(res.chi, key)
+        rel = abs(got - ref) / max(abs(ref), 1e-300)
+        worst = max(worst, rel)
+        extra = ""
+        if key[0] == "spin":
+            f = (dens[key[1]] - 2 * docc[key[1]]) / 4
+            extra = f", (n - 2d)/4 {f:.12f}"
+            worst = max(worst, abs(got - f) / abs(f))
+        if key[0] == "dens":
+            f = dens[key[1]] + 2 * docc[key[1]]
+            extra = f", n + 2d {f:.12f}"
+            worst = max(worst, abs(got - f) / abs(f))
+        print(f"[extras]   sum rule {key}: + weights {got:.12f}, "
+              f"Σ w‖Oψ‖² {ref:.12f}{extra}")
+    print(f"[extras]   sum rules: worst rel {worst:.3e} (limit "
+          f"{IDENTITY_RTOL})")
+    if not worst <= IDENTITY_RTOL:
+        fail(f"config 2 chi sum rules off by {worst:.3e}")
+    for key in (("spin", 0, 0), ("pair", 0, 0)):
+        got, want, scale = _first_moment(res, key)
+        rel = abs(got - want) / scale
+        print(f"[extras]   first moment {key}: Σ weight × pole {got:.12e}, "
+              f"KronMatvec {want:.12e}, rel to {scale:.6e}: {rel:.3e} "
+              f"(limit {IDENTITY_RTOL})")
+        if not rel <= IDENTITY_RTOL:
+            fail(f"config 2 chi first moment {key} off by {rel:.3e}")
+    _rdm_checks(res)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    kr = ed.ed_build_krylov_state_complexity()
+    torch.cuda.synchronize()
+    kry_s = time.perf_counter() - t0
+    kry = read_counts()["B1"]
+    worst_p = max(float(np.abs(p.sum(0) - 1.0).max())
+                  for p in kr.distribution.values())
+    k0 = max(abs(float(k[0])) for k in kr.complexity.values())
+    print(f"[extras]   Krylov state complexity: {kry_s:.2f} s, B1 launches "
+          f"{kry}, keys {sorted(kr.complexity)}; distribution sums to 1 "
+          f"within {worst_p:.3e} (limit {RDM_TOL}), |K(0)| {k0:.3e}; K(tmax) "
+          + ", ".join(f"{k}: {v[-1]:.6f}" for k, v in
+                      sorted(kr.complexity.items())))
+    if not (worst_p <= RDM_TOL and k0 <= RDM_TOL and kry > 0):
+        fail("config 2 Krylov state complexity")
+    report["B1_launches_extras"] = counts["B1"] + kry
+    report["extras"] = dict(wall_s=wall, matvecs=res.n_matvecs,
+                            krylov_s=kry_s, peak_gib=peak, **res.timings)
+    ed.ed_finalize_solver()
+
+
+def phase_extras(report: dict) -> None:
+    _extras_golden(report)
+    _extras_config2(report)
+
+
 def _observables() -> dict:
     import edipack_tpu_torch.main as ed
     return dict(dens=ed.ed_get_dens(), docc=ed.ed_get_docc(),
@@ -903,6 +1355,8 @@ def kernel_report(report: dict) -> list:
              replaces="edipack_tpu/ops/pallas_fused.py:237",
              launches=report["B1_launches"],
              launches_dmft_loop2=report["B1_launches_dmft"],
+             launches_extras_golden=report["B1_launches_extras_golden"],
+             launches_extras_config2=report["B1_launches_extras"],
              max_abs_err=max(s["err64"] for s in report["fused"]),
              ms=big["b1"], ms_back_to_back=big["b1_b2b"],
              plain_ms=big["b1_plain"],
@@ -963,7 +1417,7 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernel", phase_kernel),
                      ("golden", phase_golden), ("solve", phase_solve),
-                     ("dmft", phase_dmft)):
+                     ("dmft", phase_dmft), ("extras", phase_extras)):
         t0 = time.perf_counter()
         fn(report)
         print(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s",

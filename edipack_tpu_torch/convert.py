@@ -5,7 +5,13 @@ can build an edipack_tpu solver and an edipack_tpu_torch solver from the
 same numbers. Packed bath arrays share one layout in both packages, and so
 do the restart files (``hamiltonian.restart``, ``state_list.restart``,
 ``sectors.restart``, ``xmu.restart``): ``ed_init_solver`` / ``ed_solve`` /
-``ed_search_variable`` read the ones edipack_tpu wrote, as they are.
+``ed_search_variable`` read the ones edipack_tpu wrote, as they are. The
+same holds for the stores of the extras: ``ed_read_*chimatrix`` reads the
+``chimatrix<suffix>.npz`` that edipack_tpu's ``ed_solve`` writes (and
+``ed_read_impgmatrix`` its ``gfmatrix<suffix>.npz``), and
+``ed_read_umatrix_file`` and the ``ed_read_umatrix`` input read a umatrix
+file that edipack_tpu's ``ed_save_umatrix_file`` wrote
+(tests/test_torch_chi.py, tests/test_torch_extras_api.py).
 """
 from __future__ import annotations
 

@@ -11,12 +11,15 @@ restart file written by either package is read by the other:
     listed sectors ± ed_sectors_shift (ED_DIAG_NORMAL.f90:311-371)
   * xmu.restart — chemical potential + step for fixed-density runs
   * hamiltonian.restart — bath parameters (bath/dmft_bath.py)
-  * GFmatrix npz store (solver/greens.py GFMatrix.save/load)
+  * GFmatrix and χ-matrix npz stores (solver/greens.py GFMatrix.save/load:
+    gfmatrix<suffix>.npz, chimatrix<suffix>.npz)
+  * histogram_states.ed — per-sector retained-state counts of each
+    finite-T solve, appended (ED_DIAG_NORMAL.f90:444-460)
+  * χ text files on the bosonic Matsubara axis (spinChi_l{ab}_iv.ed, ...)
 
-Not here yet: the finite-T state histogram and the susceptibility files
-(ROADMAP.md queue A, item 9, extras), and the superc impF/impSelf and
-nonsu2 SOC-operator files (item 10, joint modes); check_supported refuses
-the inputs that would write them.
+Not here yet: the superc impF/impSelf and nonsu2 SOC-operator files
+(ROADMAP.md queue A, item 10, joint modes); check_supported refuses the
+inputs that would write them.
 """
 from __future__ import annotations
 
@@ -191,7 +194,17 @@ def write_all_outputs(cfg: EDConfig, result) -> None:
     write_energy(cfg, result.obs)
     if result.gf is not None and result.gf.channels:
         write_gf_text(cfg, result)
+    if result.chi is not None and result.chi.channels:
+        write_chi_text(cfg, result)
     write_eigenvalues(cfg, result.diag, result.table)
+    if cfg.ed_finite_temp and result.diag.sector_histogram is not None:
+        # per-sector retained-state histogram, appended per solve
+        # (reference histogram_states.ed, ED_DIAG_NORMAL.f90:444-460)
+        with open(_path(cfg, "histogram_states"), "a") as fh:
+            for isec, n in enumerate(result.diag.sector_histogram):
+                if n:
+                    fh.write(f"{isec + 1} {n}\n")
+            fh.write("\n")
     write_state_list_restart(cfg, result.diag, result.table)
     write_sectors_restart(cfg, result.diag, result.table)
     save_bath_file(result.bath, os.path.join(
@@ -201,6 +214,9 @@ def write_all_outputs(cfg: EDConfig, result) -> None:
     if result.gf is not None and result.gf.channels:
         result.gf.save(os.path.join(
             cfg.ed_output_dir, f"gfmatrix{cfg.ed_file_suffix}.npz"))
+    if result.chi is not None and result.chi.channels:
+        result.chi.save(os.path.join(
+            cfg.ed_output_dir, f"chimatrix{cfg.ed_file_suffix}.npz"))
 
 
 # ---------------------------------------------------------------------------
@@ -263,3 +279,26 @@ def write_gf_text(cfg: EDConfig, result) -> None:
         _print_components(cfg, "impSigma", "iw", wm, result.get_sigma(zm, "m"))
         _print_components(cfg, "impSigma", "realw", wr,
                           result.get_sigma(zr, "r"))
+
+
+# susceptibilities on the bosonic axis nu_n = 2 n pi / beta, one file per
+# channel (reference ED_IO print routines; names as edipack_tpu writes them)
+CHI_FILES = {"spin": ("spinChi", "ed_print_chispin"),
+             "dens": ("densChi", "ed_print_chidens"),
+             "pair": ("pairChi", "ed_print_chipair"),
+             "exct_s": ("exctChi_singlet", "ed_print_chiexct"),
+             "exct_t": ("exctChi_tripletXY", "ed_print_chiexct"),
+             "exct_tz": ("exctChi_tripletZ", "ed_print_chiexct")}
+
+
+def write_chi_text(cfg: EDConfig, result) -> None:
+    vm = 1j * 2 * np.arange(cfg.lmats) * np.pi / cfg.beta
+    for key in result.chi.channels:
+        if key[0] not in CHI_FILES:
+            continue
+        fname, flag = CHI_FILES[key[0]]
+        if not getattr(cfg, flag):
+            continue
+        a, b = key[1] + 1, key[2] + 1
+        _splot(cfg, f"{fname}_l{a}{b}_iv", np.imag(vm),
+               result.chi.eval(key, vm))

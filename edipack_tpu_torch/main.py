@@ -9,7 +9,7 @@ explicit device (default ``"cuda"``, which raises when CUDA is absent).
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -23,7 +23,7 @@ from .device import resolve_device
 from .sectors import SectorTable
 from .solver.core import (SolveResult, check_supported, not_implemented,
                           solve_impurity)
-from .umatrix import build_umatrix
+from .umatrix import TwoBodyTerm, build_umatrix, make_term
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -57,6 +57,7 @@ class EDSolver:
             print(f"[edipack_tpu_torch] loaded local Hamiltonian from "
                   f"{self.cfg.hlocfile} (set hlocfile='' to disable; "
                   f"ed_set_hloc overrides)")
+        self.runtime_terms: List[TwoBodyTerm] = []
         self.result: Optional[SolveResult] = None
         self.neigen_sector_override = None
 
@@ -89,6 +90,12 @@ class EDSolver:
                                   "joint modes")
         self.hloc = h
 
+    def add_twobody_operator(self, oi, si, oj, sj, ok, sk, ol, sl, u) -> None:
+        self.runtime_terms.append(make_term(oi, si, oj, sj, ok, sk, ol, sl, u))
+
+    def reset_umatrix(self) -> None:
+        self.runtime_terms = []
+
     def solve(self, bath_array: Optional[np.ndarray] = None,
               flag_gf: bool = True) -> SolveResult:
         if bath_array is not None:
@@ -96,9 +103,14 @@ class EDSolver:
         neigen = self.neigen_sector_override
         if neigen is None and self.result is not None:
             # successive-solve annealing (reference ed_post_diag feedback:
-            # neigen_sector persists between ed_solve calls,
-            # ED_DIAG_NORMAL.f90:475-517)
+            # neigen_sector and lanc_nstates_total persist between ed_solve
+            # calls, ED_DIAG_NORMAL.f90:475-517); the adapted budget goes
+            # into self.cfg here, before this solve takes its config
             neigen = self.result.diag.neigen_sector
+            prev_total = self.result.diag.lanc_nstates_total
+            if self.cfg.ed_finite_temp and prev_total \
+                    and prev_total != self.cfg.lanc_nstates_total:
+                self.cfg = self.cfg.replace(lanc_nstates_total=prev_total)
         sector_mask = None
         if neigen is None or self.cfg.ed_sectors:
             table = SectorTable(self.cfg)
@@ -107,7 +119,7 @@ class EDSolver:
                 neigen = edio.read_state_list_restart(self.cfg, table)
             if self.cfg.ed_sectors:
                 sector_mask = edio.read_sectors_restart(self.cfg, table)
-        um = build_umatrix(self.cfg)
+        um = build_umatrix(self.cfg, runtime_terms=self.runtime_terms)
         self.result = solve_impurity(self.cfg, self.hloc, um, self.bath,
                                      self.device, neigen_override=neigen,
                                      sector_mask=sector_mask,
@@ -169,7 +181,15 @@ def ed_finalize_solver() -> None:
 
 
 def ed_get_bath_dimension(cfg: Optional[EDConfig] = None) -> int:
-    return get_bath_dimension(cfg or get_config())
+    return get_bath_dimension(cfg or get_config(), get_global_basis())
+
+
+def ed_add_twobody_operator(oi, si, oj, sj, ok, sk, ol, sl, u) -> None:
+    _S().add_twobody_operator(oi, si, oj, sj, ok, sk, ol, sl, u)
+
+
+def ed_reset_umatrix() -> None:
+    _S().reset_umatrix()
 
 
 def ed_get_sigma(zeta=None, axis="m", typ="n"):
@@ -321,14 +341,18 @@ def ed_reset_suffix() -> None:
     ed_set_suffix("")
 
 
+def _store_path(name: str) -> str:
+    """<ed_output_dir>/<name><suffix>.npz of the current config."""
+    cfg = get_config()
+    return os.path.join(cfg.ed_output_dir, f"{name}{cfg.ed_file_suffix}.npz")
+
+
 def ed_read_impgmatrix(path: Optional[str] = None):
     """Reload the Källén-Lehmann GF store written by a previous solve so
     G/Σ/D can be re-evaluated on any grid without re-solving (reference
     ed_read_ImpGMatrix -> read_GFmatrix, ED_GFMATRIX.f90:78-107)."""
     from .solver.greens import GFMatrix
-    cfg = get_config()
-    gf = GFMatrix.load(path or os.path.join(
-        cfg.ed_output_dir, f"gfmatrix{cfg.ed_file_suffix}.npz"))
+    gf = GFMatrix.load(path or _store_path("gfmatrix"))
     s = _S()
     if s.result is not None:
         s.result.gf = gf
@@ -342,3 +366,299 @@ def ed_build_impg(zeta, axis="m"):
 
 def ed_build_sigma(zeta, axis="m"):
     return ed_get_sigma(zeta, axis, typ="n")
+
+
+ed_read_impdmatrix = ed_read_impgmatrix   # D(z) lives in the same store
+
+
+def ed_build_impd(zeta, axis="m"):
+    return ed_get_dimp(zeta, axis)
+
+
+# -- energies, density matrices, phonons, runtime input ----------------------
+
+
+def ed_get_epot():
+    """⟨Hint⟩ + Hartree terms (reference ed_get_epot, get_energy.f90:18)."""
+    return float(_R().energies[0])
+
+
+def ed_get_eint():
+    return float(_R().energies[1])
+
+
+def ed_get_ehartree():
+    return float(_R().energies[2])
+
+
+def ed_get_eknot():
+    return float(_R().energies[3])
+
+
+def ed_get_ephon():
+    """(Eph, Eeph) phonon energy contributions (reference ed_get_ephon)."""
+    obs = _R().obs
+    return np.array([obs.eph, obs.eeph])
+
+
+def ed_get_phon():
+    """(⟨b†b⟩, ⟨X⟩, ⟨X²⟩) (reference ed_get_phon_site)."""
+    obs = _R().obs
+    nvec = np.arange(len(obs.ph_n))
+    return np.array([float(nvec @ obs.ph_n), obs.ph_x, obs.ph_x2])
+
+
+def ed_get_nsectors() -> int:
+    return len(SectorTable(get_config()))
+
+
+def ed_get_sp_dm():
+    return _R().single_particle_dm
+
+
+def ed_get_denmat():
+    """Full one-body density matrix over imp+bath levels as
+    (Nspin,Nspin,Ns,Ns), spin-diagonal in the normal mode (reference
+    ed_get_denmat / full_1body_density_matrix, get_denmat.f90)."""
+    sp = np.asarray(_R().single_particle_dm)
+    nspin, ns = sp.shape[0], sp.shape[-1]
+    out = np.zeros((nspin, nspin, ns, ns), complex)
+    for s in range(nspin):
+        out[s, s] = sp[s]
+    return out
+
+
+def ed_get_imp_info():
+    return _R().imp_info
+
+
+def ed_set_g_ph(g) -> None:
+    """Orbital-diagonal e-ph couplings (reference ed_set_G_ph)."""
+    g = np.asarray(g, float)
+    vals = list(np.diag(g)) if g.ndim == 2 else list(g)
+    set_config(get_config().replace(g_ph=vals))
+    if _solver is not None:
+        _solver.cfg = _solver.cfg.replace(g_ph=vals)
+
+
+def ed_set_a_ph(a: float) -> None:
+    """Linear phonon displacement term (reference ed_set_A_ph)."""
+    set_config(get_config().replace(a_ph=float(a)))
+    if _solver is not None:
+        _solver.cfg = _solver.cfg.replace(a_ph=float(a))
+
+
+def ed_update_input(name: str, vals):
+    """Runtime update of the whitelisted input fields (reference
+    ed_update_input, ED_INPUT_VARS.f90:887-916): EXC_FIELD, PAIR_FIELD,
+    SPIN_FIELD_X/Y/Z."""
+    s = _S()
+    cfg = s.cfg
+    key = name.upper()
+    vals = list(np.atleast_1d(np.asarray(vals, float)))
+    sizes = {"EXC_FIELD": 4, "PAIR_FIELD": cfg.norb,
+             "SPIN_FIELD_X": cfg.norb, "SPIN_FIELD_Y": cfg.norb,
+             "SPIN_FIELD_Z": cfg.norb}
+    if key not in sizes:
+        raise ValueError("WRONG NAME ON ED_UPDATE_INPUT")
+    if len(vals) != sizes[key]:
+        raise ValueError(f"WRONG SIZE IN ED_UPDATE_{key}")
+    field = key.lower()
+    if key != "EXC_FIELD":
+        cur = list(getattr(cfg, field))
+        cur[:len(vals)] = vals
+        vals = cur
+    s.cfg = cfg.replace(**{field: vals})
+
+
+# -- two-body terms from files (reference read/save_umatrix_file) ------------
+
+
+def ed_read_umatrix_file(path: str) -> None:
+    """Load a two-body operator list from a umatrix file into the runtime
+    terms (reference read_umatrix_file, ED_PARSE_UMATRIX.f90:363+)."""
+    from .umatrix import read_umatrix_file
+    _S().runtime_terms = list(read_umatrix_file(path))
+
+
+def ed_save_umatrix_file(path: str) -> None:
+    """Save the active two-body operator list (reference save_umatrix_file)."""
+    from .umatrix import save_umatrix_file
+    s = _S()
+    save_umatrix_file(build_umatrix(s.cfg, runtime_terms=s.runtime_terms),
+                      path)
+
+
+# -- susceptibilities (chi*_flag) --------------------------------------------
+
+
+def ed_get_chi(kind="spin", zeta=None, axis="m"):
+    return _R().get_chi(kind, zeta, axis)
+
+
+def ed_get_spinchi(zeta=None, axis="m"):
+    return ed_get_chi("spin", zeta, axis)
+
+
+def ed_get_denschi(zeta=None, axis="m"):
+    return ed_get_chi("dens", zeta, axis)
+
+
+def ed_get_pairchi(zeta=None, axis="m"):
+    return ed_get_chi("pair", zeta, axis)
+
+
+def ed_get_exctchi(zeta=None, axis="m"):
+    return ed_get_chi("exct", zeta, axis)
+
+
+def ed_build_spinchi(zeta, axis="m"):
+    return ed_get_chi("spin", zeta, axis)
+
+
+def ed_build_denschi(zeta, axis="m"):
+    return ed_get_chi("dens", zeta, axis)
+
+
+def ed_build_pairchi(zeta, axis="m"):
+    return ed_get_chi("pair", zeta, axis)
+
+
+def ed_build_exctchi(zeta, axis="m"):
+    return ed_get_chi("exct", zeta, axis)
+
+
+def _read_chimatrix(path: Optional[str] = None):
+    """Reload the χ weight/pole store a previous solve wrote
+    (chimatrix<suffix>.npz, the layout edipack_tpu writes)."""
+    from .solver.greens import GFMatrix
+    chi = GFMatrix.load(path or _store_path("chimatrix"))
+    s = _S()
+    if s.result is not None:
+        s.result.chi = chi
+    s.loaded_chi = chi
+    return chi
+
+
+ed_read_spinchimatrix = _read_chimatrix
+ed_read_denschimatrix = _read_chimatrix
+ed_read_pairchimatrix = _read_chimatrix
+ed_read_exctchimatrix = _read_chimatrix
+
+
+# -- impurity reduced density matrix (rdm_flag) ------------------------------
+
+
+def ed_get_rdm(norbs=None):
+    return _R().get_rdm(norbs)
+
+
+def ed_get_impurity_rdm(norbs=None):
+    return ed_get_rdm(norbs)
+
+
+def ed_get_reduced_rdm(orbital_mask):
+    """Orbital-subset impurity RDM with fermionic sign bookkeeping
+    (reference get_reduced_rdm, ED_RDM.f90:71-230)."""
+    from .solver.rdm import get_reduced_rdm
+    r = _R()
+    return get_reduced_rdm(r.get_rdm(), orbital_mask, r.cfg.norb)
+
+
+# -- Krylov complexity builders and getters (reference ED_KRYLOV,
+#    ed_get_KSC/SSC/PSC/KOC/SOC/POC, ED_IO/get_krylov.f90) --------------------
+
+
+def ed_build_krylov_state_complexity(ops=("cdg", "c", "g1")):
+    from .solver.krylov import krylov_state_complexity
+    s = _S()
+    s.krylov_state = krylov_state_complexity(_R(), ops=ops)
+    return s.krylov_state
+
+
+def ed_build_krylov_operator_complexity(ops=("n",)):
+    from .solver.krylov import krylov_operator_complexity
+    s = _S()
+    s.krylov_op = krylov_operator_complexity(_R(), ops=ops)
+    return s.krylov_op
+
+
+def _krylov_field(attr: str, field: str):
+    """Pack a KrylovResult dict field into the reference array layout
+    (iop, ispin, iorb, [m,] Ltimes) (reference ed_KSC/ed_PSC shapes)."""
+    res = getattr(_S(), attr, None)
+    if res is None:
+        raise RuntimeError("build the Krylov complexity first "
+                           "(ed_build_krylov_*_complexity)")
+    d = getattr(res, field)
+    cfg = _S().cfg
+    ops = []
+    for (op, _s, _o) in d:
+        if op not in ops:
+            ops.append(op)
+    lt = len(res.times)
+    if field == "distribution":
+        mmax = max(v.shape[0] for v in d.values())
+        out = np.zeros((len(ops), cfg.nspin, cfg.norb, mmax, lt))
+        for (op, s, o), v in d.items():
+            out[ops.index(op), s, o, :v.shape[0], :] = v
+    else:
+        out = np.zeros((len(ops), cfg.nspin, cfg.norb, lt))
+        for (op, s, o), v in d.items():
+            out[ops.index(op), s, o, :] = v
+    return out
+
+
+def ed_get_ksc():
+    """Krylov state complexity K(t) (reference ed_get_KSC)."""
+    return _krylov_field("krylov_state", "complexity")
+
+
+def ed_get_ssc():
+    """Spread state entropy S(t) (reference ed_get_SSC)."""
+    return _krylov_field("krylov_state", "entropy")
+
+
+def ed_get_psc():
+    """Krylov-basis probabilities |φ_n(t)|² (reference ed_get_PSC)."""
+    return _krylov_field("krylov_state", "distribution")
+
+
+def ed_get_koc():
+    return _krylov_field("krylov_op", "complexity")
+
+
+def ed_get_soc():
+    return _krylov_field("krylov_op", "entropy")
+
+
+def ed_get_poc():
+    return _krylov_field("krylov_op", "distribution")
+
+
+# -- joint-mode getters: superc / nonsu2 results (ROADMAP A10) ---------------
+
+
+def ed_get_quantum_soc_operators():
+    raise not_implemented("ed_get_quantum_soc_operators (nonsu2)",
+                          "joint modes")
+
+
+def ed_get_phi():
+    raise not_implemented("ed_get_phi (superc)", "joint modes")
+
+
+def ed_get_argphi():
+    raise not_implemented("ed_get_argphi (superc)", "joint modes")
+
+
+def ed_get_exct():
+    raise not_implemented("ed_get_exct", "joint modes")
+
+
+def ed_build_impf(zeta, axis="m"):
+    raise not_implemented("ed_build_impf (superc)", "joint modes")
+
+
+def ed_build_self(zeta, axis="m"):
+    raise not_implemented("ed_build_self (superc)", "joint modes")

@@ -1,7 +1,8 @@
 """End-to-end normal-mode impurity solve (the reference `ed_solve` body,
 ED_MAIN.f90:164-228): sector operators -> diagonalization -> Green's
-functions -> observables, with all products retained on the result object
-for the `ed_*` getters; counterpart of edipack_tpu.solver.core.
+functions -> observables -> susceptibilities -> impurity RDM, with all
+products retained on the result object for the `ed_*` getters; counterpart
+of edipack_tpu.solver.core.
 
 Routing of a sector's matvec (``ed_fused_matvec``), in the working dtype
 (``ed_precision``: the f64 kernel B1 or the f32 kernel B2):
@@ -10,7 +11,8 @@ Routing of a sector's matvec (``ed_fused_matvec``), in the working dtype
   * ``always`` — the fused operator on any device (its plain PyTorch
     version on the CPU) wherever build_fused_normal applies;
   * ``never``  — KronMatvec.
-The GF chains use the same operator (in the fused internal layout).
+The GF and susceptibility chains use the same operator (in the fused
+internal layout).
 """
 from __future__ import annotations
 
@@ -35,7 +37,9 @@ from ..umatrix import Umatrix
 from .diag import DiagResult, diagonalize
 from .greens import (GFMatrix, build_gf_normal, eval_dimp, eval_gf_normal,
                      sigma_normal)
+from .chi import build_chi_normal
 from .observables import Observables, compute_observables_normal
+from .rdm import impurity_rdm_normal
 
 FUSED_MIN_DIM = 1 << 17
 
@@ -52,15 +56,6 @@ def check_supported(cfg: EDConfig) -> None:
         raise not_implemented(f"ed_mode={cfg.ed_mode}", "joint modes")
     if cfg.bath_type not in ("normal", "hybrid"):
         raise not_implemented(f"bath_type={cfg.bath_type}", "joint modes")
-    if cfg.ed_finite_temp:
-        raise not_implemented("ed_finite_temp", "extras")
-    if cfg.chispin_flag or cfg.chidens_flag or cfg.chipair_flag \
-            or cfg.chiexct_flag:
-        raise not_implemented("susceptibilities (chi*_flag)", "extras")
-    if cfg.rdm_flag:
-        raise not_implemented("rdm_flag", "extras")
-    if not cfg.ed_total_ud:
-        raise not_implemented("ed_total_ud=False", "extras")
 
 
 @dataclass
@@ -76,6 +71,8 @@ class SolveResult:
     device: torch.device
     timings: Dict[str, float] = field(default_factory=dict)
     n_matvecs: int = 0
+    chi: Optional[GFMatrix] = None
+    rdm: Optional[np.ndarray] = None
 
     def _zgrid(self, zeta, axis):
         if zeta is not None:
@@ -107,6 +104,23 @@ class SolveResult:
         return eval_dimp(self.cfg, self.gf, self._zgrid(zeta, axis),
                          axis=axis[:1])
 
+    def get_chi(self, kind="spin", zeta=None, axis="m"):
+        if self.chi is None:
+            raise RuntimeError(
+                f"chi_{kind} was not computed (enable chi{kind}_flag)")
+        z = self._zgrid(zeta, axis)
+        norb = self.cfg.norb
+        out = np.zeros((norb, norb, len(z)), complex)
+        for a in range(norb):
+            for b in range(norb):
+                out[a, b] = self.chi.eval((kind, a, b), z)
+        return out
+
+    def get_rdm(self, norbs=None):
+        if self.rdm is None:
+            raise RuntimeError("rdm was not computed (enable rdm_flag)")
+        return self.rdm
+
     @property
     def dens(self):
         return self.obs.dens
@@ -132,9 +146,19 @@ class SolveResult:
         return self.obs.imp_info
 
     @property
+    def single_particle_dm(self):
+        return self.obs.sp_dm
+
+    @property
     def evals(self):
         """Energies of the retained state list (reference ed_get_evals)."""
         return np.array([st.energy for st in self.diag.state_list.states])
+
+    @property
+    def evals_all(self):
+        """All computed sector eigenvalues, ascending."""
+        parts = list(self.diag.evals_by_sector.values())
+        return np.sort(np.concatenate(parts)) if parts else np.zeros(0)
 
     @property
     def neigen_sector(self):
@@ -225,8 +249,19 @@ def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
     with timer.phase("observables"):
         obs = compute_observables_normal(cfg, table, diag.state_list, hloc,
                                          um, b.op_cache)
+    chi = None
+    if flag_gf and (cfg.chispin_flag or cfg.chidens_flag or cfg.chipair_flag
+                    or cfg.chiexct_flag):
+        with timer.phase("susceptibilities"):
+            chi = build_chi_normal(cfg, table, diag.state_list,
+                                   b.matvec_builder, b.dense_eig_cache)
+    rdm = None
+    if cfg.rdm_flag:
+        with timer.phase("impurity_rdm"):
+            rdm = impurity_rdm_normal(cfg, table, diag.state_list)
     return SolveResult(cfg=cfg, table=table, diag=diag, gf=gf, obs=obs,
                        bath=bath.copy(), hloc=np.asarray(hloc), um=um,
                        device=device, timings=dict(timer.timings),
                        n_matvecs=sum(mv.n_calls
-                                     for mv in b.mv_cache.values()))
+                                     for mv in b.mv_cache.values()),
+                       chi=chi, rdm=rdm)

@@ -55,7 +55,8 @@ class DiagResult:
     zeta: float
     e0: float
     # finite-T annealing feedback (reference ed_post_diag
-    # ED_DIAG_NORMAL.f90:489-517)
+    # ED_DIAG_NORMAL.f90:489-517): the adapted total-state budget the next
+    # solve should request, and the per-sector retained-state histogram
     lanc_nstates_total: int = 0
     sector_histogram: Optional[np.ndarray] = None
     # Lanczos sector -> (restarts, restart cap, sweep matvecs)
@@ -200,22 +201,44 @@ def _finish(cfg: EDConfig, table: SectorTable, sl: StateList,
                     evals_by_sector[j] = evals_by_sector[st.sector]
 
     # trim + adaptive feedback (reference ed_post_diag,
-    # ED_DIAG_NORMAL.f90:443-517)
+    # ED_DIAG_NORMAL.f90:443-517); the T=0 window is gs_window, finite T
+    # keeps the lowest lanc_nstates_total states above the cutoff
     trimmed = sl.trim(cfg.ed_finite_temp, cfg.cutoff, gs_window(cfg, sl.e0),
                       cfg.lanc_nstates_total)
     counts = np.zeros(nsec, dtype=int)
     for st in trimmed:
         counts[st.sector] += 1
     new_neigen = neigen.copy()
-    for i in range(nsec):
-        if counts[i] >= neigen[i] and counts[i] > 0:
-            new_neigen[i] = min(neigen[i] + cfg.lanc_nstates_step,
-                                max(table.get_dim(i), 1))
-        elif counts[i] > 0:
-            new_neigen[i] = max(counts[i] + 1, 1)
+    new_total = cfg.lanc_nstates_total
+    if cfg.ed_finite_temp:
+        # per-sector annealing: sectors present in the retained list get one
+        # more requested state, absent ones one fewer; clamp to
+        # [1, count + 1] (:475-487)
+        for i in range(nsec):
+            new_neigen[i] = neigen[i] + 1 if counts[i] > 0 else neigen[i] - 1
+            new_neigen[i] = min(new_neigen[i], counts[i] + 1)
+            new_neigen[i] = max(new_neigen[i], 1)
+        # total-budget annealing (:489-517): if the Boltzmann weight of the
+        # highest retained state is still above cutoff, the spectrum window
+        # was too small -> grow the budget; otherwise settle it just above
+        # the trimmed size
+        sl.sort()
+        e0_all, emax = sl.e0, sl.states[-1].energy
+        if np.exp(-cfg.beta * (emax - e0_all)) > cfg.cutoff:
+            new_total = cfg.lanc_nstates_total + cfg.lanc_nstates_step
+        else:
+            new_total = max(len(trimmed), cfg.lanc_nstates_step) \
+                + cfg.lanc_nstates_step
+    else:
+        for i in range(nsec):
+            if counts[i] >= neigen[i] and counts[i] > 0:
+                new_neigen[i] = min(neigen[i] + cfg.lanc_nstates_step,
+                                    max(table.get_dim(i), 1))
+            elif counts[i] > 0:
+                new_neigen[i] = max(counts[i] + 1, 1)
     return DiagResult(trimmed, evals_by_sector, new_neigen,
                       trimmed.partition_function(), trimmed.e0,
-                      lanc_nstates_total=cfg.lanc_nstates_total,
+                      lanc_nstates_total=new_total,
                       sector_histogram=counts, lanczos_stats=lanczos_stats)
 
 
@@ -225,8 +248,9 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
                 device: torch.device,
                 neigen_override: Optional[np.ndarray] = None,
                 sector_mask: Optional[np.ndarray] = None) -> DiagResult:
-    """Sweep every sector of ``table`` (T = 0), or those of
-    ``sector_mask`` (the ed_sectors restart, io.read_sectors_restart).
+    """Sweep every sector of ``table`` (T = 0 or, with ed_finite_temp, the
+    thermal window), or those of ``sector_mask`` (the ed_sectors restart,
+    io.read_sectors_restart).
 
     ``matvec_builder(sec)``: device matvec callable with .dim/.device
     ``dense_builder(sec)``: dense sector H (dim <= lanc_dim_threshold)

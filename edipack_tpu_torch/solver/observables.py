@@ -78,6 +78,25 @@ class Observables:
         return np.array([self.s2tot, self.egs])
 
 
+def phonon_position_pdf(cfg: EDConfig, obs: Observables):
+    """Phonon displacement probability distribution P(x) on the [xmin,xmax]
+    grid (reference lattice PDF, Lpos points): P(x) = Σ_nm ρ^ph_nm ψ_n ψ_m
+    with harmonic-oscillator eigenfunctions in natural units."""
+    x = np.linspace(cfg.xmin, cfg.xmax, cfg.lpos)
+    nmax = cfg.nph
+    # Hermite functions via stable recurrence: h_0 = π^{-1/4} e^{-x²/2},
+    # h_{n+1} = sqrt(2/(n+1)) x h_n - sqrt(n/(n+1)) h_{n-1}
+    h = np.zeros((nmax + 1, len(x)))
+    h[0] = np.pi ** -0.25 * np.exp(-x ** 2 / 2)
+    if nmax >= 1:
+        h[1] = np.sqrt(2.0) * x * h[0]
+    for n in range(1, nmax):
+        h[n + 1] = np.sqrt(2.0 / (n + 1)) * x * h[n] \
+            - np.sqrt(n / (n + 1.0)) * h[n - 1]
+    pdf = np.einsum("nm,nx,mx->x", obs.ph_dm, h, h)
+    return x, pdf
+
+
 def _expect_axis_hop(v3: torch.Tensor, basis, ns: int, i: int, j: int,
                      axis: int) -> float:
     """<ψ| c†_i c_j |ψ> on one spin axis (same sector; i,j any levels)."""

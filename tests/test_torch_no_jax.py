@@ -14,6 +14,8 @@ import edipack_tpu_torch.ops.kron_tiles
 import edipack_tpu_torch.bath.fit, edipack_tpu_torch.bath.user
 import edipack_tpu_torch.io, edipack_tpu_torch.solver.mu_search
 import edipack_tpu_torch.examples.hm_bethe
+import edipack_tpu_torch.solver.chi, edipack_tpu_torch.solver.rdm
+import edipack_tpu_torch.solver.krylov
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "edipack_tpu"))
 print(",".join(bad))

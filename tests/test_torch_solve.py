@@ -164,10 +164,19 @@ def test_cuda_device_required(monkeypatch):
     ("rdm_flag", True), ("ed_total_ud", False), ("bath_type", "replica"),
 ])
 def test_unported_inputs_raise(field, value):
+    """Inputs of the slices still to port (joint modes) raise, naming
+    ROADMAP; those of the extras slice (finite T, χ, RDM, per-orbital
+    sectors) are accepted."""
+    from edipack_tpu_torch.solver.core import check_supported
     kw = dict(norb=1, nbath=2, nspin=1)
     if field == "ed_finite_temp":
         kw["lanc_nstates_total"] = 4
     cfg = default_config(**kw).replace(**{field: value})
+    if field in ("ed_finite_temp", "chispin_flag", "rdm_flag",
+                 "ed_total_ud"):
+        check_supported(cfg)
+        assert ted.EDSolver(cfg, device="cpu").cfg == cfg
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ted.EDSolver(cfg, device="cpu")
 
