@@ -58,6 +58,25 @@ non-zero on any fault):
           pair channels of orbital 0 against KronMatvec, the RDM's trace,
           Hermiticity, eigenvalues and diagonal, and the Krylov
           distributions' normalization and K(0) = 0
+  joint   the superc / nonsu2 modes in complex128 (no kernel of the four
+          is on this path: the JAX joint operators are plain jnp, the
+          port's are PyTorch): (a) the joint golden
+          (tests/data/torch_port_golden_joint.json, the six cases of
+          tests/joint_cases.py) through the ELL, direct and blocked-Kron
+          routes, each at the golden's tolerances; (b) BASELINE config 3
+          (superc, nbath=4) cold through ELL and blocked-Kron and (c)
+          config 4 (nonsu2, nbath=3, spin-mixing Hloc) through ELL and
+          direct: the two routes' e0, G, F, φ, dens, docc against each
+          other, every kept state's residual through the other route's
+          operator, complete ground multiplets, and the normal GF's
+          weights summing to 1 per channel; (d) the reference-scale superc
+          Sz=0 sector at nbath=5 (2,704,156 states): the ELL, the
+          blocked-Kron (one gather group a block pair, and in groups of
+          <= 6 terms) and a cuSPARSE complex128 CSR product held to each
+          other and timed as the kernels are, with their byte bounds, then
+          its lowest level by eigsh_lowest on the ELL with its residual
+          (the nonsu2 Ntot=12 sector, ``_big_sector(report, "nonsu2")``,
+          is left out for time)
 
 Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
 power-step entry for B3, the row-gather Lanczos for B4, and for B1 also
@@ -1295,6 +1314,341 @@ def phase_extras(report: dict) -> None:
     _extras_config2(report)
 
 
+# ---------------------------------------------------------------------------
+# joint modes (superc / nonsu2): no TPU kernel is on this path (the JAX
+# joint operators are plain jnp); the card runs the port's PyTorch ELL,
+# direct and blocked-Kron operators in complex128
+# ---------------------------------------------------------------------------
+
+JOINT_ROUTES = (("ell", {}), ("direct", dict(ed_sparse_h=False)),
+                ("kron", dict(ed_joint_kron="always")))
+# configs 3 and 4: the two routes against each other (e0 1e-10, G, F, φ
+# 1e-8), each kept state's residual through the other route's operator
+# (relative to |E|), and the normal GF's weights summing to 1 per channel.
+# The residual limit: members of config 4's degenerate ground multiplets
+# come out of Lanczos at the restart cap with ‖Hψ - Eψ‖/|E| ~ 2e-9
+# (their energies still agree to 1e-14)
+TOL_CROSS = dict(e0=1e-10, gimp=1e-8, impf=1e-8, phi=1e-8, dens=1e-8,
+                 docc=1e-8)
+RESID_RTOL = 1e-8
+SUMRULE_TOL = 1e-10
+JOINT_RTOL = 1e-12        # the 2.7M-state operators against each other
+CONFIG3 = dict(norb=2, nbath=4, nspin=1, ed_mode="superc", uloc=[-2.0, -2.0],
+               ust=-1.0, jh=0.25, jx=0.25, jp=0.25, deltasc=0.02)
+CONFIG4 = dict(norb=2, nbath=3, nspin=2, ed_mode="nonsu2", uloc=[2.0, 2.0],
+               ust=1.2, jh=0.25, spin_field_x=[0.1, 0.1])
+# levels asked of each sector in (b) and (c): the two orbitals are alike, so
+# the ground multiplets are degenerate; every sector that holds kept states
+# must also have found a level above the T=0 window (a complete multiplet:
+# G of an incomplete one depends on which members Lanczos found)
+JOINT_NEV = 6
+
+
+def _spin_mixing_hloc(norb: int) -> np.ndarray:
+    """bench.py's SOC-like Hloc of config 4: ±0.1i between the spins."""
+    h = np.zeros((2, 2, norb, norb), complex)
+    h[0, 1] = 0.1j * np.eye(norb)
+    h[1, 0] = -0.1j * np.eye(norb)
+    return h
+
+
+def _joint_golden(report: dict) -> None:
+    """(a) every case of the joint golden through the three routes."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import joint_cases as jc
+    with open(os.path.join(DATA, "torch_port_golden_joint.json")) as fh:
+        gold = json.load(fh)
+    pkg = jc.modules("edipack_tpu_torch")
+    walls = {}
+    for name, case in jc.CASES.items():
+        for route, kw in JOINT_ROUTES:
+            t0 = time.perf_counter()
+            got = jc.run_case(pkg, case, device=DEVICE, **kw)
+            walls[f"{name}/{route}"] = time.perf_counter() - t0
+            want = jc.from_json(gold["cases"][name], got)
+            dev = jc.deviations(got, want)
+            print(f"[joint] golden {name:14s} {route:6s} "
+                  f"{walls[f'{name}/{route}']:6.2f} s: "
+                  + ", ".join(f"{k} {v:.1e}" for k, v in dev.items()))
+            bad = {k: v for k, v in dev.items() if not v <= jc.TOL[k]}
+            if bad:
+                fail(f"joint golden {name} via {route}: {bad}")
+    report["joint_golden_s"] = walls
+
+
+def _joint_solve(label: str, config: dict, hloc, route: dict):
+    """One cold ed_solve of ``config`` on the card; its result, wall and a
+    summary printed."""
+    import torch
+    import edipack_tpu_torch as ed
+    cfg = ed.default_config(**config, ed_verbose=0,
+                            lanc_nstates_sector=JOINT_NEV, **route)
+    ed.set_config(cfg)
+    bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+    ed.ed_set_hloc(hloc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ed.ed_solve(bath)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    z = _z(cfg.beta)
+    out = dict(res=res, wall=wall, e0=res.e0, gimp=ed.ed_get_gimp(z),
+               dens=np.asarray(ed.ed_get_dens()),
+               docc=np.asarray(ed.ed_get_docc()))
+    if cfg.ed_mode == "superc":
+        out.update(impf=ed.ed_build_impf(z), phi=np.asarray(ed.ed_get_phi()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    big = max(res.table.get_dim(i) for i in range(len(res.table)))
+    print(f"[joint] {label}: wall {wall:.2f} s, phases "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in res.timings.items())
+          + f"; e0 {res.e0:.12f}, kept {len(res.evals)}, matvecs "
+          f"{res.n_matvecs}, largest sector {big}, Lanczos sectors "
+          f"{len(res.diag.lanczos_stats)}, peak device memory {peak:.2f} GiB")
+    kept: dict = {}
+    for st in res.diag.state_list:
+        kept.setdefault(st.sector, []).append(st.energy - res.e0)
+    print(f"[joint]   kept (sector, E - e0): "
+          + "; ".join(f"{res.table.sector(i).qn[1:]} "
+                      + ", ".join(f"{e:.2e}" for e in es)
+                      for i, es in sorted(kept.items())))
+    for i, es in kept.items():
+        if len(res.diag.evals_by_sector[i]) <= len(es):
+            fail(f"{label}: sector {res.table.sector(i).qn} kept all "
+                 f"{len(es)} levels it found; its multiplet may be "
+                 f"incomplete")
+    for name, arr in out.items():
+        if name not in ("res", "wall") and not np.all(np.isfinite(arr)):
+            fail(f"{label}: {name} is not finite")
+    ed.ed_finalize_solver()
+    return out
+
+
+def _other_operator(res, route: dict):
+    """A sector -> matvec builder of ``res``'s problem through ``route``,
+    in the sorted joint basis."""
+    import torch
+    from edipack_tpu_torch.solver.core_joint import joint_builders
+    cfg = res.cfg.replace(**route)
+    b = joint_builders(cfg, res.table, res.hloc, res.um, res.bath,
+                       torch.device(DEVICE), res.hloc_anomalous)
+
+    def apply(sec, v):
+        mv = b.matvec_builder(sec)
+        if hasattr(mv, "to_internal_flat"):
+            return mv.from_internal_flat(mv(mv.to_internal_flat(v)))
+        return mv(v)
+    return apply
+
+
+def _cross_check(label: str, a: dict, b: dict, route_b: dict) -> None:
+    """Two routes' solves of one configuration against each other, the
+    kept states of ``a`` through ``b``'s operator, and the weight sum
+    rules of ``a``'s normal GF."""
+    import torch
+    for k, tol in TOL_CROSS.items():
+        if k not in a:
+            continue
+        dev = float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k]))))
+        print(f"[joint]   {label} routes agree: {k} {dev:.3e} (limit {tol})")
+        if not dev <= tol:
+            fail(f"{label}: {k} of the two routes differ by {dev:.3e}")
+    res = a["res"]
+    apply = _other_operator(res, route_b)
+    worst = 0.0
+    for st in res.diag.state_list:
+        sec = res.table.sector(st.sector)
+        v = st.vector.to(torch.complex128)
+        r = apply(sec, v) - st.energy * v
+        worst = max(worst, float(torch.linalg.norm(r)
+                                 / torch.linalg.norm(v)) / abs(st.energy))
+    print(f"[joint]   {label}: {len(res.evals)} kept states through the "
+          f"other route's operator, worst ‖Hψ - Eψ‖/|E| {worst:.3e} "
+          f"(limit {RESID_RTOL})")
+    if not worst <= RESID_RTOL:
+        fail(f"{label}: kept-state residual {worst:.3e}")
+    keys = [k for k in res.gf.channels if k[0] == "g"]
+    sums = {k: float(np.real(res.gf.packed(k)[0].sum())) for k in keys}
+    dev = max(abs(v - 1.0) for v in sums.values())
+    print(f"[joint]   {label}: normal GF weights per channel "
+          + ", ".join(f"{k[1:]} {v:.12f}" for k, v in sorted(sums.items(),
+                                                           key=str))
+          + f"; worst |Σw - 1| {dev:.3e} (limit {SUMRULE_TOL})")
+    if not (keys and dev <= SUMRULE_TOL):
+        fail(f"{label}: GF spectral weights off by {dev:.3e}")
+
+
+def _joint_configs(report: dict) -> None:
+    """(b) config 3 through ELL and blocked-Kron; (c) config 4 through ELL
+    and direct."""
+    kron = dict(ed_joint_kron="always")
+    direct = dict(ed_sparse_h=False)
+    c3 = dict(ell=_joint_solve("config 3 superc, ELL", CONFIG3,
+                               np.zeros((1, 1, 2, 2)), {}),
+              kron=_joint_solve("config 3 superc, blocked-Kron", CONFIG3,
+                                np.zeros((1, 1, 2, 2)), kron))
+    _cross_check("config 3", c3["ell"], c3["kron"], kron)
+    _cross_check("config 3 (Kron states)", c3["kron"], c3["ell"],
+                 dict(ed_joint_kron="auto"))
+    h4 = _spin_mixing_hloc(2)
+    c4 = dict(ell=_joint_solve("config 4 nonsu2, ELL", CONFIG4, h4, {}),
+              direct=_joint_solve("config 4 nonsu2, direct", CONFIG4, h4,
+                                  direct))
+    _cross_check("config 4", c4["ell"], c4["direct"], direct)
+    _cross_check("config 4 (direct states)", c4["direct"], c4["ell"],
+                 dict(ed_sparse_h=True))
+    report["config3"] = {k: dict(wall_s=v["wall"], **v["res"].timings)
+                         for k, v in c3.items()}
+    report["config4"] = {k: dict(wall_s=v["wall"], **v["res"].timings)
+                         for k, v in c4.items()}
+
+
+def _big_sector(report: dict, mode: str, nbath: int = 5) -> None:
+    """(d) one reference-scale joint sector (dim 2,704,156): the ELL, the
+    blocked-Kron and a cuSPARSE complex128 CSR product timed and held to
+    each other, then its lowest level by eigsh_lowest on the ELL."""
+    import torch
+    from edipack_tpu_torch.bath.dmft_bath import init_bath
+    from edipack_tpu_torch.config import default_config
+    from edipack_tpu_torch.models.joint import (_enumerate_joint_terms,
+                                                build_joint_sector_op)
+    from edipack_tpu_torch.models.joint_kron import (BlockedTermAccumulator,
+                                                     JointKronMatvec)
+    from edipack_tpu_torch.ops.lanczos import eigsh_lowest
+    from edipack_tpu_torch.ops.matvec import JointMatvec
+    from edipack_tpu_torch.sectors import SectorTable
+    from edipack_tpu_torch.umatrix import build_umatrix
+    dev = torch.device(DEVICE)
+    base = CONFIG3 if mode == "superc" else CONFIG4
+    cfg = default_config(**dict(base, nbath=nbath))
+    table = SectorTable(cfg)
+    sec = table.by_qn(("sz", 0) if mode == "superc"
+                      else ("nt", table.dims.ns))
+    hloc = np.zeros((1, 1, 2, 2)) if mode == "superc" \
+        else _spin_mixing_hloc(2)
+    um, bath = build_umatrix(cfg), init_bath(cfg)
+    t0 = time.perf_counter()
+    op = build_joint_sector_op(cfg, sec, hloc, um, bath)
+    t_coo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ell = JointMatvec(op, dev)
+    torch.cuda.synchronize()
+    t_ell = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acc = BlockedTermAccumulator(sec, sec.ns)
+    _enumerate_joint_terms(cfg, sec, hloc, um, bath, None, acc, None)
+    kb = JointKronMatvec(cfg, sec, acc, None, dev)
+    torch.cuda.synchronize()
+    t_kron = time.perf_counter() - t0
+    # the same operator in gather groups of <= 6 terms (edipack_tpu's TPU
+    # tuning; the port's default takes every term of a block pair at once)
+    kb6 = JointKronMatvec(cfg, sec, acc, None, dev, gather_chunk=6)
+    del acc
+    dim, k = ell.dim, ell.k
+    rows = np.concatenate([op.rows, np.arange(dim)])
+    cols = np.concatenate([op.cols, np.arange(dim)])
+    vals = np.concatenate([op.vals, op.diag.astype(complex)])
+    csr = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([rows, cols]), device=dev),
+        torch.as_tensor(vals, device=dev), (dim, dim)).coalesce() \
+        .to_sparse_csr()
+    nnz = int(csr.values().numel())
+    del rows, cols, vals
+    print(f"[joint] {mode} sector {sec.qn} at nbath={nbath}: dim {dim}, "
+          f"nnz {nnz} "
+          f"(ELL width {k}), {len(kb.blocks)} blocks, "
+          f"{len(kb.el[3])} gather groups; host COO {t_coo:.2f} s, ELL "
+          f"tables {t_ell:.2f} s, blocked-Kron {t_kron:.2f} s")
+    g = torch.Generator().manual_seed(29)
+    v = torch.complex(torch.randn(dim, generator=g, dtype=torch.float64),
+                      torch.randn(dim, generator=g, dtype=torch.float64)
+                      ).to(dev)
+    ref = ell(v)
+    errs = dict(kron=_rel(kb.from_internal_flat(
+        kb(kb.to_internal_flat(v))), ref), csr=_rel(torch.mv(csr, v), ref))
+    print(f"[joint]   against the ELL: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (limit {JOINT_RTOL})")
+    if not max(errs.values()) <= JOINT_RTOL:
+        fail(f"{mode} 2.7M sector: operators disagree {errs}")
+    # the blocked Kron in its own layout, as a solve's Lanczos runs it
+    kv = kb.to_internal_flat(v)
+    fns = dict(ell=lambda: ell(v), kron_blocked=lambda: kb(kv),
+               kron_chunk6=lambda: kb6(kv), csr=lambda: torch.mv(csr, v))
+    e1 = _rel(kb6(kv), kb(kv))
+    print(f"[joint]   blocked-Kron with {len(kb.el[3])} gather groups (one "
+          f"a block pair) against {len(kb6.el[3])} groups of <= 6 terms: "
+          f"{e1:.3e} (limit {JOINT_RTOL})")
+    if not e1 <= JOINT_RTOL:
+        fail(f"{mode} 2.7M sector: gather chunking changes H·v by {e1:.3e}")
+    times = {}
+    for n, f in fns.items():
+        timed(times, n, f, reps=10)
+    es = 16
+    vbytes = 2 * es * dim
+    blk = sum(8 * b.size for b in kb.blocks)
+    for h in kb.el[1] + kb.el[2]:
+        blk += 0 if h is None else es * h.numel()
+    for (_, _, dwi, upi, wdw, us) in kb.el[3]:
+        blk += 8 * (dwi.numel() + upi.numel() + us.numel()) + es * wdw.numel()
+    mm = sum(8 * b.ddw * b.dup * ((b.dup if h1 is not None else 0)
+                                  + (b.ddw if h2 is not None else 0))
+             for b, h1, h2 in zip(kb.blocks, kb.el[1], kb.el[2]))
+    bounds = dict(ell=bound(8 * nnz, vbytes + (4 + es) * dim * k, "f64"),
+                  kron_blocked=bound(mm + 8 * nnz, vbytes + blk, "f64"),
+                  csr=bound(8 * nnz, vbytes + 8 * (dim + 1)
+                            + (8 + es) * nnz, "f64"))
+    bounds["kron_chunk6"] = bounds["kron_blocked"]
+    for n in ("ell", "kron_blocked", "kron_chunk6", "csr"):
+        bd = bounds[n]
+        print(f"[joint]   {n:12s} {times[n]:8.4f} ms flushed, "
+              f"{times[n + '_b2b']:8.4f} ms back to back; bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['mbytes']:.1f}"
+              f" MB, {bd['gflop']:.2f} GFLOP), share "
+              f"{bd['bound_ms'] / times[n]:.3f}")
+    print(f"[joint]   ELL / cuSPARSE c128: "
+          f"{times['ell'] / times['csr']:.2f}x flushed; blocked-Kron / "
+          f"cuSPARSE {times['kron_blocked'] / times['csr']:.2f}x")
+    del csr, kb6
+    t0 = time.perf_counter()
+    stats: dict = {}
+    vals_, vecs = eigsh_lowest(ell, dim, 1, dtype=torch.complex128, m=48,
+                               tol=1e-12, max_restarts=40, stats=stats)
+    torch.cuda.synchronize()
+    t_eig = time.perf_counter() - t0
+    psi = vecs[0]
+    resid = float(torch.linalg.norm(ell(psi) - vals_[0] * psi)
+                  / abs(vals_[0]))
+    print(f"[joint]   lowest level by eigsh_lowest on the ELL: "
+          f"{vals_[0]:.12f}, {t_eig:.2f} s, restarts {stats['n_restarts']}, "
+          f"matvecs {stats['n_matvecs']}; ‖Hψ - Eψ‖/|E| {resid:.3e} (limit "
+          f"{RESID_RTOL})")
+    if not resid <= RESID_RTOL:
+        fail(f"{mode} 2.7M sector: lowest level residual {resid:.3e}")
+    report[f"big_{mode}"] = dict(dim=dim, nnz=nnz, k=k, t_coo=t_coo,
+                                 t_ell=t_ell, t_kron=t_kron, t_eig=t_eig,
+                                 e=float(vals_[0]), resid=resid,
+                                 **times, **{f"bound_{n}": b["bound_ms"]
+                                             for n, b in bounds.items()})
+
+
+def phase_joint(report: dict) -> None:
+    t0 = time.perf_counter()
+    _joint_golden(report)
+    print(f"[joint] (a) golden in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    _joint_configs(report)
+    print(f"[joint] (b, c) configs 3 and 4 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the superc sector only: with the nonsu2 one as well (40.7 s) the
+    # script took 909.3 s on the card, over its 850 s budget
+    t0 = time.perf_counter()
+    _big_sector(report, "superc")
+    print(f"[joint] (d) superc 2.7M sector in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _observables() -> dict:
     import edipack_tpu_torch.main as ed
     return dict(dens=ed.ed_get_dens(), docc=ed.ed_get_docc(),
@@ -1417,7 +1771,8 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernel", phase_kernel),
                      ("golden", phase_golden), ("solve", phase_solve),
-                     ("dmft", phase_dmft), ("extras", phase_extras)):
+                     ("dmft", phase_dmft), ("extras", phase_extras),
+                     ("joint", phase_joint)):
         t0 = time.perf_counter()
         fn(report)
         print(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s",

@@ -1,8 +1,11 @@
 """edipack_tpu_torch — the exact-diagonalization impurity solver of
 edipack_tpu in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
-The normal-mode solve (``ed_init_solver`` -> ``ed_set_hloc`` -> ``ed_solve``
-and the ``ed_get_*`` getters), its extras (susceptibilities with the
+The solve (``ed_init_solver`` -> ``ed_set_hloc`` -> ``ed_solve`` and the
+``ed_get_*`` getters) in the normal, superc and nonsu2 modes (complex128
+joint sectors through padded-ELL, direct COO or blocked-Kronecker
+operators; normal, hybrid, replica and general baths; a complex Hloc in
+the normal mode through the nonsu2 path), its extras (susceptibilities with the
 ``chi*_flag`` inputs, the impurity RDM with ``rdm_flag``, finite
 temperature, per-orbital sectors with ``ed_total_ud=False``, runtime
 two-body terms, Krylov complexity) and the DMFT loop around it

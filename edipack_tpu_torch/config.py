@@ -186,8 +186,10 @@ class EDConfig:
     ed_file_suffix: str = ""        # per-site suffix (ineq extension)
     ed_output_dir: str = "."        # where .ed text outputs are written
     ed_write_files: bool = False    # write observables_*.ed etc. text files
-    ed_joint_kron: str = "auto"     # superc/nonsu2 matvec (joint modes: not
-    #                                 supported yet)
+    # superc/nonsu2 matvec: "always" takes the blocked-Kron operator for Sz /
+    # Ntot sectors; "auto" and "never" the padded ELL (ed_sparse_h=False
+    # the direct COO scatter-add instead)
+    ed_joint_kron: str = "auto"
     ed_profile_dir: str = ""        # accepted and inert
     ed_sanitize: bool = False       # debug-build analog of the reference's
     #                                 BUILD_TYPE=DEBUG/TESTING (-fcheck=all,

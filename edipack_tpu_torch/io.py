@@ -1,4 +1,4 @@
-"""File outputs and restart contracts (normal mode).
+"""File outputs and restart contracts.
 
 Parity targets (SURVEY.md §5 checkpoint/resume); counterpart of
 edipack_tpu.io, with the same file names and column formats, so that a
@@ -16,10 +16,9 @@ restart file written by either package is read by the other:
   * histogram_states.ed — per-sector retained-state counts of each
     finite-T solve, appended (ED_DIAG_NORMAL.f90:444-460)
   * χ text files on the bosonic Matsubara axis (spinChi_l{ab}_iv.ed, ...)
-
-Not here yet: the superc impF/impSelf and nonsu2 SOC-operator files
-(ROADMAP.md queue A, item 10, joint modes); check_supported refuses the
-inputs that would write them.
+  * superc: the anomalous impF and impSelf text files beside impG/impSigma
+  * nonsu2 t2g (Norb=3, Nspin=2): quantum_SOC_operators.ed (reference
+    print_operators, get_imp_SOC_op.f90:404+)
 """
 from __future__ import annotations
 
@@ -205,6 +204,9 @@ def write_all_outputs(cfg: EDConfig, result) -> None:
                 if n:
                     fh.write(f"{isec + 1} {n}\n")
             fh.write("\n")
+    if (cfg.ed_mode == "nonsu2" and cfg.norb == 3 and cfg.nspin == 2
+            and result.obs.imp_dm_nn is not None):
+        write_soc_operators(cfg, result.obs.imp_dm_nn)
     write_state_list_restart(cfg, result.diag, result.table)
     write_sectors_restart(cfg, result.diag, result.table)
     save_bath_file(result.bath, os.path.join(
@@ -256,22 +258,32 @@ def _print_components(cfg: EDConfig, tag: str, axis_tag: str, x, arr) -> None:
 
 
 def write_gf_text(cfg: EDConfig, result) -> None:
-    """impG/impG0/impSigma text files on both axes, gated by the
-    ed_print_* flags, and the diagonal impG on the imaginary-time grid."""
+    """impG/impG0/impSigma text files on both axes (superc: impF and
+    impSelf too), gated by the ed_print_* flags, and in normal mode the
+    diagonal impG on the imaginary-time grid."""
     wm = (2 * np.arange(cfg.lmats) + 1) * np.pi / cfg.beta
     zm = 1j * wm
     wr = np.linspace(cfg.wini, cfg.wfin, cfg.lreal)
     zr = wr + 1j * cfg.eps
+    superc = cfg.ed_mode == "superc"
     if cfg.ed_print_g:
         _print_components(cfg, "impG", "iw", wm, result.get_gimp(zm, "m"))
         _print_components(cfg, "impG", "realw", wr, result.get_gimp(zr, "r"))
+        if superc:
+            _print_components(cfg, "impF", "iw", wm,
+                              result.get_gimp(zm, "m", typ="a"))
+            _print_components(cfg, "impF", "realw", wr,
+                              result.get_gimp(zr, "r", typ="a"))
         # imaginary-time diagonal components from the KL poles (Ltau grid)
-        tau = np.linspace(0.0, cfg.beta, cfg.ltau)
-        for s in range(cfg.nspin):
-            for a in range(cfg.norb):
-                if ("g", s, a, a) in result.gf.channels:
-                    gt = result.gf.eval_tau(("g", s, a, a), tau, cfg.beta)
-                    _splot(cfg, f"impG_l{a + 1}{a + 1}_s{s + 1}_tau", tau, gt)
+        if cfg.ed_mode == "normal":
+            tau = np.linspace(0.0, cfg.beta, cfg.ltau)
+            for s in range(cfg.nspin):
+                for a in range(cfg.norb):
+                    if ("g", s, a, a) in result.gf.channels:
+                        gt = result.gf.eval_tau(("g", s, a, a), tau,
+                                                cfg.beta)
+                        _splot(cfg, f"impG_l{a + 1}{a + 1}_s{s + 1}_tau",
+                               tau, gt)
     if cfg.ed_print_g0:
         _print_components(cfg, "impG0", "iw", wm, result.get_g0imp(zm, "m"))
         _print_components(cfg, "impG0", "realw", wr, result.get_g0imp(zr, "r"))
@@ -279,6 +291,36 @@ def write_gf_text(cfg: EDConfig, result) -> None:
         _print_components(cfg, "impSigma", "iw", wm, result.get_sigma(zm, "m"))
         _print_components(cfg, "impSigma", "realw", wr,
                           result.get_sigma(zr, "r"))
+        if superc:
+            _print_components(cfg, "impSelf", "iw", wm,
+                              result.get_sigma(zm, "m", typ="a"))
+            _print_components(cfg, "impSelf", "realw", wr,
+                              result.get_sigma(zr, "r", typ="a"))
+
+
+def write_soc_operators(cfg: EDConfig, imp_dm_nn: np.ndarray) -> None:
+    """quantum_SOC_operators.ed: ⟨L·S⟩, ⟨J⟩, ⟨J²⟩, then S(α, a, b) and
+    L(α, s, s') as re/im pairs (the layout edipack_tpu writes)."""
+    from .solver.soc import quantum_soc_operators
+    soc = quantum_soc_operators(cfg, imp_dm_nn)
+    with open(_path(cfg, "quantum_SOC_operators"), "w") as fh:
+        fh.write("# <LS>  <Jx> <Jy> <Jz>  <Jx2> <Jy2> <Jz2>\n")
+        fh.write(" ".join(f"{v.real:.12f}" for v in
+                          [soc.ls_imp, *soc.j_imp, *soc.j_imp_sq]) + "\n")
+        fh.write("# S(alpha, iorb, jorb) re/im\n")
+        for k in range(3):
+            for a in range(3):
+                fh.write(" ".join(
+                    f"{soc.s_imp[k, a, b].real:.12f} "
+                    f"{soc.s_imp[k, a, b].imag:.12f}"
+                    for b in range(3)) + "\n")
+        fh.write("# L(alpha, ispin, jspin) re/im\n")
+        for k in range(3):
+            for s1 in range(2):
+                fh.write(" ".join(
+                    f"{soc.l_imp[k, s1, s2].real:.12f} "
+                    f"{soc.l_imp[k, s1, s2].imag:.12f}"
+                    for s2 in range(2)) + "\n")
 
 
 # susceptibilities on the bosonic axis nu_n = 2 n pi / beta, one file per

@@ -1,4 +1,4 @@
-"""Solver lifecycle and the `ed_*` functional API (normal mode).
+"""Solver lifecycle and the `ed_*` functional API.
 
 Parity target: reference ED_MAIN.f90 (`ed_init_solver` :90-139, `ed_solve`
 :164-228, `ed_finalize_solver` :236-266); counterpart of edipack_tpu.main.
@@ -17,15 +17,42 @@ import torch
 from . import io as edio
 from .bath.dmft_bath import (array_to_bath, bath_to_array, get_bath_dimension,
                              init_bath)
-from .bath.user import get_global_basis
+from .bath.user import _set_global_basis, get_global_basis
 from .config import EDConfig, get_config, set_config
 from .device import resolve_device
 from .sectors import SectorTable
-from .solver.core import (SolveResult, check_supported, not_implemented,
-                          solve_impurity)
+from .solver.core import SolveResult, solve_impurity
 from .umatrix import TwoBodyTerm, build_umatrix, make_term
 
 DeviceLike = Union[str, torch.device, None]
+
+
+class _ComplexNormalProxy:
+    """Spin-slicing view of the nonsu2 SolveResult of a complex-Hloc
+    normal-mode solve (reference _CMPLX_NORMAL capability): the dynamical
+    getters come back in the caller's normal-mode (nspin=1) shapes; every
+    other attribute is the nonsu2 result's."""
+
+    def __init__(self, inner):
+        object.__setattr__(self, "_inner", inner)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _slice(self, g):
+        return np.asarray(g)[:1, :1]
+
+    def get_gimp(self, zeta=None, axis="m", typ="n"):
+        return self._slice(self._inner.get_gimp(zeta, axis=axis, typ=typ))
+
+    def get_sigma(self, zeta=None, axis="m", typ="n"):
+        return self._slice(self._inner.get_sigma(zeta, axis=axis, typ=typ))
+
+    def get_g0and(self, zeta=None, axis="m", typ="n"):
+        return self._slice(self._inner.get_g0and(zeta, axis=axis, typ=typ))
+
+    def get_delta(self, zeta=None, axis="m", typ="n"):
+        return self._slice(self._inner.get_delta(zeta, axis=axis, typ=typ))
 
 
 class EDSolver:
@@ -36,7 +63,6 @@ class EDSolver:
                  device: DeviceLike = "cuda"):
         self.cfg = cfg or get_config()
         self.cfg.validate()
-        check_supported(self.cfg)
         self.device = resolve_device(device)
         self.hloc = np.zeros((self.cfg.nspin, self.cfg.nspin,
                               self.cfg.norb, self.cfg.norb), dtype=complex)
@@ -57,38 +83,91 @@ class EDSolver:
             print(f"[edipack_tpu_torch] loaded local Hamiltonian from "
                   f"{self.cfg.hlocfile} (set hlocfile='' to disable; "
                   f"ed_set_hloc overrides)")
+        self.hloc_anomalous: Optional[np.ndarray] = None
         self.runtime_terms: List[TwoBodyTerm] = []
         self.result: Optional[SolveResult] = None
+        self.basis = get_global_basis()
         self.neigen_sector_override = None
 
     # -- lifecycle ------------------------------------------------------
     def init_solver(self, bath_array: Optional[np.ndarray] = None
                     ) -> np.ndarray:
         """Initialize (or adopt) the bath; returns the packed bath array."""
+        self.basis = get_global_basis()
+        if self.basis is not None:
+            # re-read the replica matrix basis from <bfile><suffix>.restart
+            # when it exists (reference init_dmft_bath Bfile hook,
+            # ED_BATH_DMFT.f90:191-193 / ED_BATH_REPLICA.f90:236-268)
+            bpath = self.cfg.bfile + self.cfg.ed_file_suffix + ".restart"
+            if os.path.exists(bpath):
+                from .bath.replica import read_hbasis
+                self.basis = read_hbasis(bpath, self.basis.ops.shape[1],
+                                         self.cfg.norb,
+                                         linit=self.basis.linit)
+                _set_global_basis(self.basis)
         if bath_array is not None and np.asarray(bath_array).size \
-                == get_bath_dimension(self.cfg) \
+                == get_bath_dimension(self.cfg, self.basis) \
                 and np.any(np.asarray(bath_array) != 0):
-            self.bath = array_to_bath(bath_array, self.cfg)
+            self.bath = array_to_bath(bath_array, self.cfg, self.basis)
         else:
             # the default bath, overridden by <hfile><suffix>.restart when
             # that file exists (reference init_dmft_bath)
-            self.bath = init_bath(self.cfg, restart_file=self.cfg.hfile
+            self.bath = init_bath(self.cfg, basis=self.basis,
+                                  restart_file=self.cfg.hfile
                                   + self.cfg.ed_file_suffix + ".restart")
         return bath_to_array(self.bath)
 
-    def set_hloc(self, hloc: np.ndarray) -> None:
+    def set_hloc(self, hloc: np.ndarray, hloc_anomalous=None) -> None:
         """reference ed_set_Hloc (ED_AUX_FUNX.f90:202-274). Accepts
-        (Nspin,Nspin,Norb,Norb) or (Nspin*Norb, Nspin*Norb)."""
+        (Nspin,Nspin,Norb,Norb) or (Nspin*Norb, Nspin*Norb), and in superc
+        the anomalous (Norb,Norb) block. A complex Hloc in ed_mode=normal
+        is solved through the nonsu2 joint path (the reference's
+        _CMPLX_NORMAL build; (N↑,N↓) stays conserved) and its results are
+        sliced back to the normal-mode shapes."""
         ns, no = self.cfg.nspin, self.cfg.norb
         h = np.asarray(hloc, dtype=complex)
         if h.shape == (ns * no, ns * no):
             h = h.reshape(ns, no, ns, no).transpose(0, 2, 1, 3)
         if h.shape != (ns, ns, no, no):
             raise ValueError(f"bad Hloc shape {h.shape}")
-        if np.abs(h.imag).max() > 1e-12:
-            raise not_implemented("complex Hloc in ed_mode=normal",
-                                  "joint modes")
+        if self.cfg.ed_mode == "normal" and np.abs(h.imag).max() > 1e-12:
+            if self.cfg.bath_type in ("replica", "general"):
+                raise ValueError(
+                    "complex Hloc in ed_mode=normal is solved via the "
+                    "nonsu2 fallback, which does not support promoting an "
+                    "nspin=1 replica/general bath basis; set "
+                    "ed_mode=nonsu2 explicitly")
+            print("[edipack_tpu_torch] complex Hloc with ed_mode=normal: "
+                  "solving via the nonsu2 joint path; results are "
+                  "spin-sliced back to the normal-mode shapes")
         self.hloc = h
+        if hloc_anomalous is not None:
+            ha = np.asarray(hloc_anomalous, dtype=complex)
+            if ha.shape[-2:] != (no, no):
+                raise ValueError(f"bad anomalous Hloc shape {ha.shape}")
+            self.hloc_anomalous = ha.reshape(no, no) if ha.ndim == 2 \
+                else ha[0, 0]
+
+    def _cplx_normal_active(self) -> bool:
+        return (self.cfg.ed_mode == "normal"
+                and np.abs(np.asarray(self.hloc).imag).max() > 1e-12)
+
+    def _promote_to_nonsu2(self):
+        """Map the normal-mode problem to its nonsu2 twin for the complex-
+        Hloc route: spin-diagonal Hloc blocks, spin-replicated bath, zero
+        spin-flip hybridization."""
+        from .bath.dmft_bath import allocate_bath
+        cfg2 = self.cfg.replace(ed_mode="nonsu2", nspin=2)
+        no = self.cfg.norb
+        h2 = np.zeros((2, 2, no, no), complex)
+        h2[0, 0] = self.hloc[0, 0]
+        h2[1, 1] = self.hloc[self.cfg.nspin - 1, self.cfg.nspin - 1]
+        b2 = allocate_bath(cfg2, self.basis)
+        b2.e[:] = self.bath.e[0]
+        b2.v[:] = self.bath.v[0]
+        if b2.u is not None:
+            b2.u[:] = 0.0
+        return cfg2, h2, b2
 
     def add_twobody_operator(self, oi, si, oj, sj, ok, sk, ol, sl, u) -> None:
         self.runtime_terms.append(make_term(oi, si, oj, sj, ok, sk, ol, sl, u))
@@ -99,7 +178,7 @@ class EDSolver:
     def solve(self, bath_array: Optional[np.ndarray] = None,
               flag_gf: bool = True) -> SolveResult:
         if bath_array is not None:
-            self.bath = array_to_bath(bath_array, self.cfg)
+            self.bath = array_to_bath(bath_array, self.cfg, self.basis)
         neigen = self.neigen_sector_override
         if neigen is None and self.result is not None:
             # successive-solve annealing (reference ed_post_diag feedback:
@@ -111,21 +190,26 @@ class EDSolver:
             if self.cfg.ed_finite_temp and prev_total \
                     and prev_total != self.cfg.lanc_nstates_total:
                 self.cfg = self.cfg.replace(lanc_nstates_total=prev_total)
+        cfg, hloc, bath = self.cfg, self.hloc, self.bath
+        cplx_route = self._cplx_normal_active()
+        if cplx_route:
+            cfg, hloc, bath = self._promote_to_nonsu2()
         sector_mask = None
         if neigen is None or self.cfg.ed_sectors:
-            table = SectorTable(self.cfg)
+            table = SectorTable(cfg)
             if neigen is None:
                 # a previous run's state_list.restart seeds neigen_sector
-                neigen = edio.read_state_list_restart(self.cfg, table)
+                neigen = edio.read_state_list_restart(cfg, table)
             if self.cfg.ed_sectors:
-                sector_mask = edio.read_sectors_restart(self.cfg, table)
-        um = build_umatrix(self.cfg, runtime_terms=self.runtime_terms)
-        self.result = solve_impurity(self.cfg, self.hloc, um, self.bath,
-                                     self.device, neigen_override=neigen,
-                                     sector_mask=sector_mask,
-                                     flag_gf=flag_gf)
+                sector_mask = edio.read_sectors_restart(cfg, table)
+        um = build_umatrix(cfg, runtime_terms=self.runtime_terms)
+        res = solve_impurity(cfg, hloc, um, bath, self.device,
+                             neigen_override=neigen, sector_mask=sector_mask,
+                             hloc_anomalous=self.hloc_anomalous,
+                             flag_gf=flag_gf)
+        self.result = _ComplexNormalProxy(res) if cplx_route else res
         if self.cfg.ed_write_files:
-            edio.write_all_outputs(self.cfg, self.result)
+            edio.write_all_outputs(cfg, res)
         return self.result
 
     def finalize(self) -> None:
@@ -163,8 +247,8 @@ def ed_init_solver(bath=None, cfg: Optional[EDConfig] = None,
     return arr
 
 
-def ed_set_hloc(hloc) -> None:
-    _S().set_hloc(hloc)
+def ed_set_hloc(hloc, hloc_anomalous=None) -> None:
+    _S().set_hloc(hloc, hloc_anomalous)
 
 
 def ed_solve(bath=None, flag_gf: bool = True) -> SolveResult:
@@ -636,29 +720,46 @@ def ed_get_poc():
     return _krylov_field("krylov_op", "distribution")
 
 
-# -- joint-mode getters: superc / nonsu2 results (ROADMAP A10) ---------------
-
-
-def ed_get_quantum_soc_operators():
-    raise not_implemented("ed_get_quantum_soc_operators (nonsu2)",
-                          "joint modes")
+# -- superc / nonsu2 results -------------------------------------------------
 
 
 def ed_get_phi():
-    raise not_implemented("ed_get_phi (superc)", "joint modes")
+    """superc order parameter |φ_ab|, φ_ab = ⟨c_{b↑} c_{a↓}⟩."""
+    return _R().phisc
 
 
 def ed_get_argphi():
-    raise not_implemented("ed_get_argphi (superc)", "joint modes")
+    return _R().argphi
 
 
 def ed_get_exct():
-    raise not_implemented("ed_get_exct", "joint modes")
+    """nonsu2 exciton order parameters (4, Norb, Norb): S0, Tx, Ty, Tz."""
+    return _R().exct
 
 
 def ed_build_impf(zeta, axis="m"):
-    raise not_implemented("ed_build_impf (superc)", "joint modes")
+    """Anomalous impurity GF F(z) (superc)."""
+    return ed_get_gimp(zeta, axis, typ="a")
 
 
 def ed_build_self(zeta, axis="m"):
-    raise not_implemented("ed_build_self (superc)", "joint modes")
+    """Anomalous self-energy (superc)."""
+    return ed_get_sigma(zeta, axis, typ="a")
+
+
+def ed_get_quantum_soc_operators():
+    """nonsu2 quantum SOC operator expectations ⟨S⟩/⟨L⟩/⟨J⟩/⟨J²⟩/⟨L·S⟩ of
+    the t2g impurity (reference ed_get_quantum_SOC_operators,
+    ED_IO/get_imp_SOC_op.f90:289-400). Requires Norb=3, Nspin=2,
+    ed_mode=nonsu2. Not to be confused with :func:`ed_get_soc`, the Krylov
+    spread operator complexity's entropy. Returns a
+    :class:`~edipack_tpu_torch.solver.soc.SOCOperators`."""
+    from .solver.soc import quantum_soc_operators
+    res = _R()
+    if res.cfg.ed_mode != "nonsu2":
+        raise ValueError("quantum SOC operators require ed_mode=nonsu2")
+    rho = res.obs.imp_dm_nn
+    if rho is None:
+        raise RuntimeError("no spin-resolved impurity density matrix "
+                           "recorded — run ed_solve first")
+    return quantum_soc_operators(res.cfg, rho)

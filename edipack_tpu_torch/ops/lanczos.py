@@ -1,7 +1,9 @@
 """Krylov eigensolvers on the solve's device, in the working dtype.
 
-Counterpart of the f64/f32 part of edipack_tpu.ops.lanczos (the sweeps run
-in the start vector's dtype; the restart bookkeeping on the host):
+Counterpart of the f64/f32/c128 part of edipack_tpu.ops.lanczos (the sweeps
+run in the start vector's dtype, real or complex: Hermitian inner products,
+real α and β, a real symmetric tridiagonal; the restart bookkeeping on the
+host):
 
 * :func:`lanczos_sweep` — m-step Lanczos factorization with full (two-pass)
   reorthogonalization against the stored basis; driven by the host-side
@@ -26,7 +28,16 @@ START_SEED = 17     # seed of the start-vector generator (cf. PRNGKey(17))
 
 
 def _deflate(locked: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return v - (locked @ v) @ locked
+    return v - (locked.conj() @ v) @ locked
+
+
+def _vdot_real(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Re <a|b> (the Rayleigh quotient of a Hermitian operator is real)."""
+    return torch.vdot(a, b).real
+
+
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.empty(0, dtype=dtype).real.dtype
 
 
 def _lock(locked_vecs: list, locked_vals: list, vec: torch.Tensor,
@@ -57,19 +68,20 @@ def lanczos_sweep(matvec: Callable, v0: torch.Tensor, m: int,
         v = v / torch.linalg.norm(v)
     V = torch.zeros(m + 1, dim, dtype=v0.dtype, device=v0.device)
     V[0] = v
-    alphas = torch.zeros(m, dtype=v0.dtype, device=v0.device)
-    betas = torch.zeros(m, dtype=v0.dtype, device=v0.device)
+    rdtype = real_dtype(v0.dtype)
+    alphas = torch.zeros(m, dtype=rdtype, device=v0.device)
+    betas = torch.zeros(m, dtype=rdtype, device=v0.device)
     v_prev = torch.zeros_like(v)
-    beta_prev = torch.zeros((), dtype=v0.dtype, device=v0.device)
+    beta_prev = torch.zeros((), dtype=rdtype, device=v0.device)
     for i in range(m):
         w = matvec(v)
         if have_locked:
             w = _deflate(locked, w)
-        alpha = torch.dot(v, w)
+        alpha = _vdot_real(v, w)
         w = w - alpha * v - beta_prev * v_prev
         basis = V[:i + 1]
         for _ in range(2):
-            w = w - (basis @ w) @ basis
+            w = w - (basis.conj() @ w) @ basis
         beta = torch.linalg.norm(w)
         v_next = torch.where(beta > 0, w / torch.where(beta > 0, beta, 1.0),
                              torch.zeros_like(w))
@@ -87,13 +99,14 @@ def lanczos_tridiag(matvec: Callable, v0: torch.Tensor, m: int
     Returns (alphas[m], betas[m-1], norm0) where norm0 = |v0|."""
     norm0 = torch.linalg.norm(v0)
     v = v0 / torch.where(norm0 > 0, norm0, 1.0)
-    alphas = torch.zeros(m, dtype=v0.dtype, device=v0.device)
-    betas = torch.zeros(m, dtype=v0.dtype, device=v0.device)
+    rdtype = real_dtype(v0.dtype)
+    alphas = torch.zeros(m, dtype=rdtype, device=v0.device)
+    betas = torch.zeros(m, dtype=rdtype, device=v0.device)
     v_prev = torch.zeros_like(v)
-    beta_prev = torch.zeros((), dtype=v0.dtype, device=v0.device)
+    beta_prev = torch.zeros((), dtype=rdtype, device=v0.device)
     for i in range(m):
         w = matvec(v)
-        alpha = torch.dot(v, w)
+        alpha = _vdot_real(v, w)
         w = w - alpha * v - beta_prev * v_prev
         beta = torch.linalg.norm(w)
         v_next = torch.where(beta > 0, w / torch.where(beta > 0, beta, 1.0),
@@ -121,10 +134,12 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
     """``nev`` lowest eigenpairs by restarted deflated Lanczos.
 
     Host-driven outer loop, device sweeps on ``matvec.device`` in
-    ``dtype``. Returns (evals[nev] numpy, evecs[nev, dim] on the device in
-    ``dtype``) sorted ascending. ``v0`` is the start vector (else one is
-    drawn in f64 from a CPU generator seeded with 17 and cast, so every
-    device and dtype starts from the same vector); operators with
+    ``dtype`` (real, or complex for a Hermitian operator). Returns
+    (evals[nev] numpy, evecs[nev, dim] on the device in ``dtype``) sorted
+    ascending. ``v0`` is the start vector (else one is drawn in f64 from a
+    CPU generator seeded with 17 and cast, its imaginary part drawn next
+    for a complex dtype, so every device starts from the same vector);
+    operators with
     ``v0_project`` (padded fused layouts) get their padding zeroed in every
     start vector. ``stats`` is filled with ``n_restarts`` and
     ``n_matvecs``."""
@@ -148,6 +163,9 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
 
     def random_start():
         v = torch.randn(dim, generator=generator, dtype=torch.float64)
+        if dtype.is_complex:
+            v = torch.complex(v, torch.randn(dim, generator=generator,
+                                             dtype=torch.float64))
         return v.to(device=device, dtype=dtype)
 
     project = getattr(matvec, "v0_project", None)

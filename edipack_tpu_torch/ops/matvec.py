@@ -1,11 +1,18 @@
-"""Dense-factor Kronecker matvec of a normal-mode sector.
+"""Sector matvecs in PyTorch (cf. edipack_tpu.ops.matvec).
 
-The sector vector is a dense tensor ``V[DimPh, DimDw, DimUp]``; H·V is a few
-dense matmuls on the spin-factor matrices plus signed-permutation gathers
-for the non-local terms (cf. edipack_tpu.ops.matvec.KronMatvec, which leaves
-the same products to XLA). This is the path for sectors below the fused
-kernel's size, for phonon sectors, and for ``ed_fused_matvec="never"``, in
-the solve's working dtype (f64, or f32 for ``ed_precision="float32"``).
+* :class:`KronMatvec` — a normal-mode sector: the sector vector is a dense
+  tensor ``V[DimPh, DimDw, DimUp]``; H·V is a few dense matmuls on the
+  spin-factor matrices plus signed-permutation gathers for the non-local
+  terms. This is the path for sectors below the fused kernel's size, for
+  phonon sectors, and for ``ed_fused_matvec="never"``, in the solve's
+  working dtype (f64, or f32 for ``ed_precision="float32"``).
+* :class:`EllMatvec`, :class:`JointMatvec`, :class:`JointMatvecDirect` — a
+  superc / nonsu2 joint sector in complex128: the padded-ELL row gather of
+  the electronic H (the stored operator, ``ed_sparse_h=True``) or a
+  scatter-add of its COO terms (``ed_sparse_h=False``), batched over the
+  phonon axis, plus the phonon and electron-phonon Kronecker terms. Both
+  process the rows (or terms) in chunks, so that the gathered temporary
+  stays under ``CHUNK_ELEMS`` elements whatever the sector's size.
 """
 from __future__ import annotations
 
@@ -13,7 +20,13 @@ import numpy as np
 import torch
 
 from ..device import DTYPE
+from ..models.joint import JointSectorOp
 from ..models.normal import NormalSectorOp
+
+CDTYPE = torch.complex128
+# elements of the gathered (rows, K) / (terms,) temporaries of the joint
+# matvecs: 2^24 complex128 = 256 MiB
+CHUNK_ELEMS = 1 << 24
 
 
 def _perm_factor(mats: np.ndarray):
@@ -146,3 +159,157 @@ class KronMatvec:
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
         return self.apply3(v.reshape(self.shape3)).reshape(-1)
+
+
+class EllMatvec:
+    """Padded-ELL sparse matvec along the last axis:
+    out[..., i] = Σ_k vals[i, k] * v[..., cols[i, k]].
+
+    Rows are padded to a fixed K with (col=i, val=0) entries; ``cols`` is
+    int32. The rows are taken in chunks of ``CHUNK_ELEMS // (K * batch)``
+    so that the gathered (batch, rows, K) temporary stays bounded."""
+
+    def __init__(self, cols: np.ndarray, vals: np.ndarray,
+                 device: torch.device, dtype: torch.dtype = CDTYPE,
+                 nnz: int = None):
+        assert cols.shape == vals.shape and cols.ndim == 2
+        self.dim, self.k = cols.shape
+        self.dtype = dtype
+        self.device = device
+        self.cols = torch.as_tensor(np.asarray(cols, np.int32), device=device)
+        self.vals = torch.as_tensor(np.asarray(vals), dtype=dtype,
+                                    device=device)
+        self.nnz = int(nnz if nnz is not None else np.count_nonzero(vals))
+        self.n_calls = 0
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        """out over the last axis of ``v`` (..., dim)."""
+        lead = v.shape[:-1]
+        v2 = v.reshape(-1, self.dim)
+        out = torch.empty_like(v2)
+        step = max(1, CHUNK_ELEMS // (self.k * v2.shape[0]))
+        for lo in range(0, self.dim, step):
+            hi = min(self.dim, lo + step)
+            g = v2.index_select(1, self.cols[lo:hi].reshape(-1))
+            g = g.view(v2.shape[0], hi - lo, self.k).mul_(self.vals[lo:hi])
+            torch.sum(g, -1, out=out[:, lo:hi])
+        return out.reshape(*lead, self.dim)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        self.n_calls += 1
+        return self.apply(v)
+
+
+def _eph_op(op: JointSectorOp) -> JointSectorOp:
+    """The electron-phonon coupling's electronic matrix (eph_diag plus the
+    eph COO terms) as a JointSectorOp of its own, for its ELL tables."""
+    empty = np.zeros(0, np.int64)
+    rows = op.eph_rows if op.eph_rows is not None else empty
+    return JointSectorOp(
+        sector=op.sector, dim_el=op.dim_el, rows=rows,
+        cols=op.eph_cols if op.eph_rows is not None else empty,
+        vals=op.eph_vals if op.eph_rows is not None else np.zeros(0, complex),
+        diag=np.real(op.eph_diag))
+
+
+class _JointBase:
+    """What the joint matvecs share: the (DimPh, DimEl) view of the flat
+    vector, and the phonon terms ph_mat ⊗ 1 + ph_x ⊗ E_eph."""
+
+    def __init__(self, op: JointSectorOp, device: torch.device):
+        self.dim_el = op.dim_el
+        self.dim_ph = op.sector.dim_ph
+        self.dim = self.dim_el * self.dim_ph
+        self.dtype = CDTYPE
+        self.device = device
+        self.nnz = op.nnz_estimate()
+        self.n_calls = 0
+        self.has_ph = op.ph_mat is not None
+        if self.has_ph:
+            self.ph_mat = self._put(op.ph_mat)
+            self.ph_x = self._put(op.ph_x)
+
+    def _put(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=CDTYPE,
+                               device=self.device)
+
+    def _put_idx(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
+
+    def electronic(self, v2: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def eph(self, v2: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        self.n_calls += 1
+        v2 = v.reshape(self.dim_ph, self.dim_el).to(self.dtype)
+        out = self.electronic(v2)
+        if self.has_ph:
+            out += self.ph_mat @ v2
+            out += self.ph_x @ self.eph(v2)
+        return out.reshape(-1)
+
+
+class JointMatvec(_JointBase):
+    """superc/nonsu2 sector matvec: the padded-ELL electronic H (diagonal
+    included) batched over the phonon axis, plus the phonon and
+    electron-phonon Kronecker terms (the e-ph electronic matrix as ELL
+    tables of its own). ``v`` is flat (DimPh * DimEl)."""
+
+    def __init__(self, op: JointSectorOp, device: torch.device):
+        super().__init__(op, device)
+        cols, vals = op.ell()
+        self.ell = EllMatvec(cols, vals, device)
+        if self.has_ph:
+            ecols, evals = _eph_op(op).ell()
+            self.eph_ell = EllMatvec(ecols, evals, device)
+
+    @property
+    def k(self) -> int:
+        return self.ell.k
+
+    def electronic(self, v2: torch.Tensor) -> torch.Tensor:
+        return self.ell.apply(v2)
+
+    def eph(self, v2: torch.Tensor) -> torch.Tensor:
+        return self.eph_ell.apply(v2)
+
+
+class JointMatvecDirect(_JointBase):
+    """Memory-lean 'direct' joint matvec (the ``ed_sparse_H=F`` analog,
+    reference ED_*/direct/ on-the-fly HxV): the raw COO term list applied
+    by a scatter-add (``index_add_``), O(nnz) storage instead of the ELL's
+    O(dim·K). On CUDA the scatter's atomics leave the order of each row's
+    sum free, so its result differs from the ELL's in the last bits."""
+
+    def __init__(self, op: JointSectorOp, device: torch.device):
+        super().__init__(op, device)
+        self.coo = (self._put_idx(op.rows), self._put_idx(op.cols),
+                    self._put(op.vals))
+        self.diag = self._put(op.diag)
+        if self.has_ph:
+            e = _eph_op(op)
+            self.eph_coo = (self._put_idx(e.rows), self._put_idx(e.cols),
+                            self._put(e.vals))
+            self.eph_diag = self._put(e.diag)
+
+    @staticmethod
+    def _scatter(out, v2, coo) -> None:
+        rows, cols, vals = coo
+        step = max(1, CHUNK_ELEMS // v2.shape[0])
+        for lo in range(0, rows.shape[0], step):
+            hi = lo + step
+            out.index_add_(1, rows[lo:hi],
+                           vals[lo:hi] * v2.index_select(1, cols[lo:hi]))
+
+    def electronic(self, v2: torch.Tensor) -> torch.Tensor:
+        out = self.diag * v2
+        self._scatter(out, v2, self.coo)
+        return out
+
+    def eph(self, v2: torch.Tensor) -> torch.Tensor:
+        out = self.eph_diag * v2
+        self._scatter(out, v2, self.eph_coo)
+        return out

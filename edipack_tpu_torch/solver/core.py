@@ -1,8 +1,9 @@
-"""End-to-end normal-mode impurity solve (the reference `ed_solve` body,
+"""End-to-end impurity solve (the reference `ed_solve` body,
 ED_MAIN.f90:164-228): sector operators -> diagonalization -> Green's
 functions -> observables -> susceptibilities -> impurity RDM, with all
 products retained on the result object for the `ed_*` getters; counterpart
-of edipack_tpu.solver.core.
+of edipack_tpu.solver.core. superc and nonsu2 solves go to
+solver.core_joint.solve_impurity_joint.
 
 Routing of a sector's matvec (``ed_fused_matvec``), in the working dtype
 (``ed_precision``: the f64 kernel B1 or the f32 kernel B2):
@@ -24,8 +25,9 @@ import numpy as np
 import torch
 
 from ..bath.dmft_bath import DmftBath
-from ..bath.functions import (delta_bath, g0and_bath, invg0_bath,
-                              matsubara_grid, real_grid)
+from ..bath.functions import (delta_bath, fdelta_bath, g0and_bath,
+                              invf0_bath, invg0_bath, matsubara_grid,
+                              real_grid)
 from ..config import EDConfig
 from ..device import DTYPE, PhaseTimer, working_dtype
 from ..models.normal import NormalSectorOp, build_normal_sector_op
@@ -44,20 +46,6 @@ from .rdm import impurity_rdm_normal
 FUSED_MIN_DIM = 1 << 17
 
 
-def not_implemented(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"edipack_tpu_torch: {what} is not ported yet (ROADMAP.md queue A, "
-        f"{item}); use edipack_tpu for it")
-
-
-def check_supported(cfg: EDConfig) -> None:
-    """Raise for every input this package does not solve yet."""
-    if cfg.ed_mode != "normal":
-        raise not_implemented(f"ed_mode={cfg.ed_mode}", "joint modes")
-    if cfg.bath_type not in ("normal", "hybrid"):
-        raise not_implemented(f"bath_type={cfg.bath_type}", "joint modes")
-
-
 @dataclass
 class SolveResult:
     cfg: EDConfig
@@ -73,6 +61,7 @@ class SolveResult:
     n_matvecs: int = 0
     chi: Optional[GFMatrix] = None
     rdm: Optional[np.ndarray] = None
+    hloc_anomalous: Optional[np.ndarray] = None
 
     def _zgrid(self, zeta, axis):
         if zeta is not None:
@@ -81,9 +70,20 @@ class SolveResult:
             else real_grid(self.cfg)
 
     def get_gimp(self, zeta=None, axis="m", typ="n"):
+        """G (typ "n") or, in superc, the anomalous F (typ "a"):
+        (Nspin, Nspin, Norb, Norb, Lz); nonsu2 fills the spin blocks."""
+        z = self._zgrid(zeta, axis)
+        mode = self.cfg.ed_mode
+        if mode == "superc":
+            from .core_joint import eval_gf_superc
+            g, f, _ = eval_gf_superc(self.cfg, self.gf, z)
+            return g if typ == "n" else f
         if typ != "n":
             raise ValueError("anomalous GF only exists in superc mode")
-        return eval_gf_normal(self.cfg, self.gf, self._zgrid(zeta, axis))
+        if mode == "nonsu2":
+            from .core_joint import eval_gf_nonsu2
+            return eval_gf_nonsu2(self.cfg, self.gf, z)
+        return eval_gf_normal(self.cfg, self.gf, z)
 
     def get_g0imp(self, zeta=None, axis="m", typ="n"):
         return g0and_bath(self.cfg, self.bath, self.hloc,
@@ -93,12 +93,29 @@ class SolveResult:
         return self.get_g0imp(zeta, axis, typ)
 
     def get_delta(self, zeta=None, axis="m", typ="n"):
-        return delta_bath(self.cfg, self.bath, self._zgrid(zeta, axis))
+        fn = delta_bath if typ == "n" else fdelta_bath
+        return fn(self.cfg, self.bath, self._zgrid(zeta, axis))
 
     def get_sigma(self, zeta=None, axis="m", typ="n"):
+        """Σ (typ "n") or, in superc, the anomalous self-energy (typ "a")
+        by the Nambu Dyson equation."""
         z = self._zgrid(zeta, axis)
         ig0 = invg0_bath(self.cfg, self.bath, self.hloc, z)
+        if self.cfg.ed_mode == "superc":
+            from .core_joint import eval_gf_superc, sigma_superc
+            g, f, _ = eval_gf_superc(self.cfg, self.gf, z)
+            # F21 = F evaluated at conj(z) (reference get_impF_superc
+            # zconj=.true.), the Nambu 21 block as conj(F21)^T
+            _, f21, _ = eval_gf_superc(self.cfg, self.gf, np.conj(z))
+            if0 = invf0_bath(self.cfg, self.bath, self.hloc_anomalous, z)
+            sigma, self_ = sigma_superc(self.cfg, g, f, ig0, if0,
+                                        axis=axis[:1], f21=f21)
+            return sigma if typ == "n" else self_
         return sigma_normal(self.cfg, self.get_gimp(z, axis, typ), ig0)
+
+    def get_self(self, zeta=None, axis="m"):
+        """Anomalous self-energy (superc; reference get_Self_superc)."""
+        return self.get_sigma(zeta, axis, typ="a")
 
     def get_dimp(self, zeta=None, axis="m"):
         return eval_dimp(self.cfg, self.gf, self._zgrid(zeta, axis),
@@ -148,6 +165,22 @@ class SolveResult:
     @property
     def single_particle_dm(self):
         return self.obs.sp_dm
+
+    @property
+    def phisc(self):
+        p = self.obs.phisc
+        return p if p is not None else np.zeros(self.cfg.norb)
+
+    @property
+    def argphi(self):
+        p = self.obs.argphi
+        return p if p is not None else np.zeros(self.cfg.norb)
+
+    @property
+    def exct(self):
+        e = self.obs.exct
+        return e if e is not None else np.zeros((4, self.cfg.norb,
+                                                 self.cfg.norb))
 
     @property
     def evals(self):
@@ -230,9 +263,16 @@ def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
                    bath: DmftBath, device: torch.device,
                    neigen_override: Optional[np.ndarray] = None,
                    sector_mask: Optional[np.ndarray] = None,
+                   hloc_anomalous: Optional[np.ndarray] = None,
                    flag_gf: bool = True) -> SolveResult:
     cfg.validate()
-    check_supported(cfg)
+    if cfg.ed_mode != "normal":
+        from .core_joint import solve_impurity_joint
+        return solve_impurity_joint(cfg, hloc, um, bath, device,
+                                    neigen_override=neigen_override,
+                                    sector_mask=sector_mask,
+                                    hloc_anomalous=hloc_anomalous,
+                                    flag_gf=flag_gf)
     timer = PhaseTimer(device, verbose=cfg.ed_verbose)
     table = SectorTable(cfg)
     b = _normal_builders(cfg, table, hloc, um, bath, device)

@@ -8,10 +8,15 @@ solver choice :119-252, post-diag trimming and adaptive neigen feedback
   buckets and diagonalized with one batched ``torch.linalg.eigh`` per
   bucket;
 * larger sectors run restarted deflated Lanczos, one sector at a time, in
-  the operator's dtype (``mv.dtype``: f32 for ``ed_precision="float32"``).
+  the operator's dtype (``mv.dtype``: f32 for ``ed_precision="float32"``,
+  complex128 for the joint modes);
+* twin sectors: normal mode and superc rebuild the elided twin's states by
+  a (signed) relabeling of the basis; nonsu2 re-solves an elided sector
+  whose levels the trim would keep.
 
 Retained eigenvectors stay on the solve's device, in the dtype that gave
-them (dense buckets f64, as in edipack_tpu).
+them (dense buckets f64, or complex128 when a sector's H is complex, as in
+edipack_tpu).
 """
 from __future__ import annotations
 
@@ -25,13 +30,15 @@ import torch
 
 from ..config import EDConfig
 from ..device import working_dtype
+from ..fock import popcount
 from ..ops.lanczos import batched_eigh, eigsh_lowest
 from ..sectors import Sector, SectorTable
 from .eigenspace import EigenState, StateList
 
 # ed_sanitize: <u,Hv> vs <Hu,v> relative defect allowed for an operator of
 # each dtype (f32: edipack_tpu's limit, set by the f32 matvec noise)
-HERMITICITY_LIMIT = {torch.float64: 1e-10, torch.float32: 5e-5}
+HERMITICITY_LIMIT = {torch.float64: 1e-10, torch.float32: 5e-5,
+                     torch.complex128: 1e-10, torch.complex64: 5e-5}
 # T=0 ground multiplet: levels within this many units of the working
 # dtype's rounding of E0 count as degenerate, whatever gs_threshold says
 GS_ULPS = 8
@@ -85,15 +92,17 @@ def _sanitize_mv(i: int, mv) -> None:
     proj = getattr(mv, "v0_project", None)
 
     def rand_vec():
-        v = torch.as_tensor(rng.normal(size=mv.dim), dtype=mv.dtype,
-                            device=mv.device)
+        x = rng.normal(size=mv.dim)
+        if mv.dtype.is_complex:
+            x = x + 1j * rng.normal(size=mv.dim)
+        v = torch.as_tensor(x, dtype=mv.dtype, device=mv.device)
         return proj(v) if proj is not None else v
 
     u, v = rand_vec(), rand_vec()
     hu, hv = mv(u), mv(v)
     scale = float(torch.linalg.norm(u) * torch.linalg.norm(hv)
                   + torch.linalg.norm(hu) * torch.linalg.norm(v)) + 1e-30
-    defect = abs(float(torch.dot(u, hv) - torch.dot(hu, v))) / scale
+    defect = abs(complex(torch.vdot(u, hv) - torch.vdot(hu, v))) / scale
     limit = HERMITICITY_LIMIT[mv.dtype]
     if not np.isfinite(defect) or defect > limit:
         raise AssertionError(
@@ -119,13 +128,15 @@ def _dense_buckets(cfg: EDConfig, table: SectorTable, items: List[int],
         max_batch = max(1, (1 << 22) // (bsize * bsize))
         for lo in range(0, len(bitems), max_batch):
             chunk = bitems[lo:lo + max_batch]
-            mats = np.zeros((len(chunk), bsize, bsize))
+            hs = [dense_builder(table.sector(i)) for i in chunk]
+            cplx = any(np.iscomplexobj(h) for h in hs)
+            mats = np.zeros((len(chunk), bsize, bsize),
+                            complex if cplx else float)
             dims = []
-            for bi, i in enumerate(chunk):
-                h = dense_builder(table.sector(i))
+            for bi, (i, h) in enumerate(zip(chunk, hs)):
                 d = h.shape[0]
                 if sanitize_enabled(cfg) and not np.allclose(
-                        h, h.T, atol=1e-10 * (np.abs(h).max() + 1)):
+                        h, h.conj().T, atol=1e-10 * (np.abs(h).max() + 1)):
                     raise AssertionError(
                         f"[ed_sanitize] sector {i}: dense H is not "
                         f"Hermitian — term builder bug")
@@ -179,6 +190,83 @@ def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
     return stats["n_restarts"], cap, stats["n_matvecs"]
 
 
+def _resolve_nonsu2_twins(cfg: EDConfig, table: SectorTable, sl: StateList,
+                          evals_by_sector: Dict[int, np.ndarray],
+                          matvec_builder, dense_builder, neigen: np.ndarray,
+                          twin_mask: np.ndarray,
+                          sector_mask: Optional[np.ndarray],
+                          device: torch.device,
+                          lanczos_stats: Dict[int, Tuple[int, int, int]]
+                          ) -> None:
+    """Solve any twin-elided nonsu2 sector whose spectrum (mirrored from
+    its solved partner) would enter the trimmed state list (reference
+    ED_SETUP.f90:592-603 halves the nonsu2 scan; no basis relabeling holds
+    for an arbitrary bath, so a kept twin's vectors come from an exact
+    re-solve; at T=0 the ground sector is its own twin)."""
+    if len(sl) == 0:
+        return
+    cand = []
+    for i in range(len(table)):
+        if twin_mask[i] or table.get_dim(i) == 0:
+            continue
+        if sector_mask is not None and not sector_mask[i]:
+            continue   # masked by the user, not elided as a twin
+        j = table.twin_of(i)
+        if j == i or j not in evals_by_sector:
+            continue
+        cand.append((i, evals_by_sector[j]))
+    if not cand:
+        return
+    e0 = min(min(st.energy for st in sl),
+             min(float(ev[0]) for _, ev in cand if len(ev)))
+    for i, ev in cand:
+        if len(ev) == 0:
+            continue
+        if cfg.ed_finite_temp:
+            need = np.exp(-cfg.beta * (float(ev[0]) - e0)) > cfg.cutoff
+        else:
+            need = float(ev[0]) - e0 <= cfg.gs_threshold
+        if not need:
+            # energy bookkeeping only (evals getters, neigen annealing)
+            evals_by_sector[i] = np.asarray(ev).copy()
+            continue
+        if table.get_dim(i) <= cfg.lanc_dim_threshold:
+            evs, evecs = np.linalg.eigh(dense_builder(table.sector(i)))
+            evals_by_sector[i] = evs
+            n_deg = int(np.sum(evs - evs[0] <= cfg.gs_threshold))
+            keep = min(len(evs), max(int(neigen[i]), n_deg, 1))
+            for k in range(keep):
+                sl.add(EigenState(float(evs[k]), i, torch.as_tensor(
+                    evecs[:, k], device=device)))
+        else:
+            lanczos_stats[i] = _lanczos_solve_sector(
+                cfg, table, i, matvec_builder, int(neigen[i]), sl,
+                evals_by_sector)
+
+
+def _twin_state_joint(sec: Sector, sec_twin: Sector,
+                      vector: torch.Tensor) -> torch.Tensor:
+    """superc twin eigenvector: Sz -> -Sz is the spin-swap relabeling of the
+    joint basis, |up,dw> -> (-1)^{nup(nup-1)/2 + ndw(ndw-1)/2} |dw,up>
+    (reference twin_sector_order + flip_state_other,
+    ED_SECTOR.f90:1776-1816; the sign is the JW reordering of each spin
+    block's internal string)."""
+    ns = sec.ns
+    st = np.asarray(sec.states)
+    mask = (np.int64(1) << np.int64(ns)) - 1
+    nup = popcount(st & mask)
+    ndw = popcount(st >> np.int64(ns))
+    sign = (-1.0) ** ((nup * (nup - 1)) // 2 + (ndw * (ndw - 1)) // 2)
+    flip = (st >> np.int64(ns)) | ((st & mask) << np.int64(ns))
+    pos = torch.as_tensor(np.searchsorted(np.asarray(sec_twin.states), flip),
+                          device=vector.device)
+    v = vector.reshape(sec.dim_ph, sec.dim_el)
+    w = torch.zeros_like(v)
+    w[:, pos] = v * torch.as_tensor(sign, dtype=v.dtype,
+                                    device=v.device)[None, :]
+    return w.reshape(-1)
+
+
 def _finish(cfg: EDConfig, table: SectorTable, sl: StateList,
             evals_by_sector: Dict[int, np.ndarray], neigen: np.ndarray,
             twin_mask: np.ndarray, nsec: int,
@@ -187,15 +275,21 @@ def _finish(cfg: EDConfig, table: SectorTable, sl: StateList,
         raise RuntimeError("no eigenstates found (all sectors empty?)")
 
     # twin reconstruction (reference twin_sector_order,
-    # ED_SECTOR.f90:1747-1843): the twin (Ndw,Nup) state is the transpose of
-    # V[ph, dw, up]
-    if cfg.ed_twin:
+    # ED_SECTOR.f90:1747-1843): normal mode, the twin (Ndw,Nup) state is the
+    # transpose of V[ph, dw, up]; superc, the signed spin-swap permutation
+    # of the joint basis (_twin_state_joint); nonsu2 solved its twins
+    # (_resolve_nonsu2_twins)
+    if cfg.ed_twin and cfg.ed_mode in ("normal", "superc"):
         for st in list(sl.states):
             j = table.twin_of(st.sector)
             if j != st.sector and not twin_mask[j]:
                 sec = table.sector(st.sector)
-                v3 = st.vector.reshape(sec.dim_ph, sec.dim_dw, sec.dim_up)
-                vt = v3.transpose(1, 2).reshape(-1)
+                if cfg.ed_mode == "normal":
+                    v3 = st.vector.reshape(sec.dim_ph, sec.dim_dw,
+                                           sec.dim_up)
+                    vt = v3.transpose(1, 2).reshape(-1)
+                else:
+                    vt = _twin_state_joint(sec, table.sector(j), st.vector)
                 sl.add(EigenState(st.energy, j, vt, twin_of=st.sector))
                 if st.sector in evals_by_sector:
                     evals_by_sector[j] = evals_by_sector[st.sector]
@@ -288,5 +382,9 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
         print("[edipack_tpu_torch] per-sector Lanczos timings:")
         for i, d, nv, dt in sorted(sector_times, key=lambda t: -t[3])[:20]:
             print(f"  sector {i:4d} dim {d:>10d} nev {nv}  {dt:8.3f}s")
+    if cfg.ed_twin and cfg.ed_mode == "nonsu2":
+        _resolve_nonsu2_twins(cfg, table, sl, evals_by_sector,
+                              matvec_builder, dense_builder, neigen,
+                              twin_mask, sector_mask, device, lanczos_stats)
     return _finish(cfg, table, sl, evals_by_sector, neigen, twin_mask, nsec,
                    lanczos_stats)

@@ -98,7 +98,7 @@ class GFMatrix:
 
 def _dense_moments(h: np.ndarray, phi: np.ndarray):
     evals, evecs = np.linalg.eigh(h)
-    w = np.abs(evecs.T @ phi) ** 2
+    w = np.abs(evecs.conj().T @ phi) ** 2
     keep = w > 1e-16 * max(w.max(), 1e-300)
     return w[keep], evals[keep]
 
@@ -108,11 +108,14 @@ def _moments_from_phi(matvec, phi: torch.Tensor, m: int, dense_eig=None):
 
     dense_eig = (evals, evecs) exact eigenbasis of the target sector when
     available (small sectors); otherwise a Lanczos tridiagonalization on
-    the device and a host eigh of the small tridiagonal matrix."""
+    the device and a host eigh of the small tridiagonal matrix. A weight
+    is |<n|φ>|², with the conjugate of a complex eigenbasis."""
     if dense_eig is not None:
         evals, evecs = dense_eig
-        # f64 eigenbasis; an f32 excitation is promoted, as JAX promotes
-        w = ((evecs.T @ phi.to(evecs.dtype)) ** 2).cpu().numpy()
+        # an f32 excitation is promoted to the f64 / c128 eigenbasis, as
+        # JAX promotes
+        dt = torch.promote_types(evecs.dtype, phi.dtype)
+        w = ((evecs.to(dt).conj().T @ phi.to(dt)).abs() ** 2).cpu().numpy()
         keep = w > 1e-16 * max(w.max(), 1e-300)
         return w[keep], np.asarray(evals)[keep]
     dim = phi.shape[0]

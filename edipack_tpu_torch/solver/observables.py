@@ -54,6 +54,13 @@ class Observables:
     sp_dm: np.ndarray = None
     # exciton order parameters (4, Norb, Norb): S0, Tx, Ty, Tz
     exct: np.ndarray = None
+    # spin-resolved impurity sp density matrix (2, 2, Norb, Norb)
+    # ⟨c†_{a s1} c_{b s2}⟩, nonsu2 only (feeds
+    # ed_get_quantum_soc_operators, reference get_imp_SOC_op.f90)
+    imp_dm_nn: np.ndarray = None
+    # superc order parameter |φ_ab| and its phase, superc only
+    phisc: np.ndarray = None
+    argphi: np.ndarray = None
     # 3^Norb impurity configuration probabilities
     prob: np.ndarray = None
     # phonons

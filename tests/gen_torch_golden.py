@@ -4,6 +4,7 @@ on the card (chip_smoke.py) and in the slow CPU tests
 
     JAX_PLATFORMS=cpu python tests/gen_torch_golden.py [float64] [float32] [dmft]
     JAX_PLATFORMS=cpu python tests/gen_torch_golden.py extras [PART ...]
+    JAX_PLATFORMS=cpu python tests/gen_torch_golden.py joint
 
 Runs the JAX package's ed_solve on the CPU at norb=2, nbath=4 with the
 two-orbital Kanamori parameters of bench.py and writes, for each precision
@@ -57,6 +58,15 @@ named (both by default):
   sectors give degenerate pairs), so the kept set does not hang on the
   last bits of the energies.
 
+* joint: tests/data/torch_port_golden_joint.json, the superc / nonsu2
+  cases of tests/joint_cases.py (about 2 min): superc at norb=2, nbath=3
+  with deltasc and an anomalous Hloc, nonsu2 at norb=2, nbath=2 with a
+  spin-mixing Hloc and spin_field_x, the norb=3 t2g model with λ L·S and
+  its quantum SOC operators, a complex Hloc in ed_mode=normal, a superc
+  replica bath, and a superc solve with phonons; each through
+  ``run_case`` (ed_* API, f64 JointMatvec on the CPU), with a χ² fit by
+  L-BFGS-B of the superc and nonsu2 baths to (D/2)² (G, F) and (D/2)² G.
+
 Not collected by pytest (the file name does not start with ``test_``).
 """
 import dataclasses
@@ -80,6 +90,7 @@ OUT = os.path.join(HERE, "data", "torch_port_golden_n2b4.json")
 OUT_F32 = os.path.join(HERE, "data", "torch_port_golden_f32_n2b4.json")
 OUT_DMFT = os.path.join(HERE, "data", "torch_port_golden_dmft_n2b4.json")
 OUT_EXTRAS = os.path.join(HERE, "data", "torch_port_golden_extras_n2b4.json")
+OUT_JOINT = os.path.join(HERE, "data", "torch_port_golden_joint.json")
 # the DMFT golden: Bethe lattice of half-bandwidth D, two loops
 DMFT = dict(cg_scheme="delta", cg_method=1)
 WBAND = 1.0
@@ -384,7 +395,25 @@ def write_extras_golden(only=()):
     print(f"wrote {OUT_EXTRAS}: {os.path.getsize(OUT_EXTRAS)} bytes")
 
 
+def write_joint_golden():
+    import joint_cases as jc
+    pkg = jc.modules("edipack_tpu")
+    out = dict(source="edipack_tpu ed_solve on the CPU through the ed_* "
+                      "API (tests/joint_cases.py run_case; f64 JointMatvec)",
+               nmats=jc.NMATS, cases={})
+    for name, case in jc.CASES.items():
+        res = jc.run_case(pkg, case)
+        out["cases"][name] = jc.to_json(res)
+        print(f"joint {name}: e0 {res['e0']}")
+    with open(OUT_JOINT, "w") as fh:
+        json.dump(out, fh)
+    print(f"wrote {OUT_JOINT}: {os.path.getsize(OUT_JOINT)} bytes")
+
+
 def main(modes):
+    if modes[:1] == ["joint"]:
+        write_joint_golden()
+        return
     if modes[:1] == ["extras_part"]:
         extras_part(*modes[1:3])
         return

@@ -2,8 +2,9 @@
 edipack_tpu on the CPU (mirrors tests/test_main_api.py): runtime and file
 two-body terms against Kanamori, ed_update_input, the energy, density-
 matrix and phonon getters, the replica bath dimension, the names and
-signatures of the API, and the joint-mode names that raise until that
-slice is ported.
+signatures of the API, and the joint-mode getters working on a solved
+superc / nonsu2 result (their values against edipack_tpu:
+tests/test_torch_joint_api.py).
 """
 import inspect
 import os
@@ -287,7 +288,42 @@ def test_extras_names_and_signatures():
         assert getattr(edipack_tpu_torch, name) is getattr(ted, name)
 
 
+@pytest.fixture(scope="module")
+def joint_results():
+    """One small superc solve and one nonsu2 t2g solve (norb=3, no GF) of
+    the port; the getters' outputs."""
+    out = {}
+    ted.ed_init_solver(cfg=default_config(norb=1, nbath=2, ed_mode="superc",
+                                          uloc=[-1.5], deltasc=0.1,
+                                          ed_verbose=0), device="cpu")
+    ted.ed_set_hloc(np.zeros((1, 1, 1, 1)))
+    ted.ed_solve()
+    for name in ("ed_get_phi", "ed_get_argphi", "ed_build_impf",
+                 "ed_build_self"):
+        out[name] = np.asarray(getattr(ted, name)(*JOINT_NAMES[name]))
+    ted.ed_init_solver(cfg=default_config(norb=3, nbath=1, nspin=2,
+                                          ed_mode="nonsu2", uloc=[1.0] * 3,
+                                          ed_verbose=0), device="cpu")
+    ted.ed_set_hloc(np.zeros((2, 2, 3, 3)))
+    ted.ed_solve(flag_gf=False)
+    out["ed_get_exct"] = ted.ed_get_exct()
+    out["ed_get_quantum_soc_operators"] = ted.ed_get_quantum_soc_operators()
+    ted.ed_finalize_solver()
+    return out
+
+
 @pytest.mark.parametrize("name", sorted(JOINT_NAMES))
-def test_joint_mode_names_raise(name):
-    with pytest.raises(NotImplementedError, match="joint modes"):
-        getattr(ted, name)(*JOINT_NAMES[name])
+def test_joint_mode_names_raise(joint_results, name):
+    """The joint-mode getters, which raised until the joint slice, return
+    finite results of the reference shapes."""
+    got = joint_results[name]
+    if name == "ed_get_quantum_soc_operators":
+        assert got.s_imp.shape == (3, 3, 3) and got.l_imp.shape == (3, 2, 2)
+        assert np.isfinite(got.ls_imp) and np.all(np.isfinite(got.j_imp))
+        return
+    shape = {"ed_get_phi": (1, 1), "ed_get_argphi": (1, 1),
+             "ed_get_exct": (4, 3, 3), "ed_build_impf": (1, 1, 1, 1, 1),
+             "ed_build_self": (1, 1, 1, 1, 1)}[name]
+    assert np.shape(got) == shape and np.all(np.isfinite(got))
+    if name == "ed_get_phi":
+        assert got[0, 0] > 1e-3

@@ -16,6 +16,9 @@ import edipack_tpu_torch.io, edipack_tpu_torch.solver.mu_search
 import edipack_tpu_torch.examples.hm_bethe
 import edipack_tpu_torch.solver.chi, edipack_tpu_torch.solver.rdm
 import edipack_tpu_torch.solver.krylov
+import edipack_tpu_torch.models.joint, edipack_tpu_torch.models.joint_kron
+import edipack_tpu_torch.solver.core_joint, edipack_tpu_torch.solver.soc
+import edipack_tpu_torch.ops.sector_ops, edipack_tpu_torch.ops.matvec
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "edipack_tpu"))
 print(",".join(bad))

@@ -164,27 +164,27 @@ def test_cuda_device_required(monkeypatch):
     ("rdm_flag", True), ("ed_total_ud", False), ("bath_type", "replica"),
 ])
 def test_unported_inputs_raise(field, value):
-    """Inputs of the slices still to port (joint modes) raise, naming
-    ROADMAP; those of the extras slice (finite T, χ, RDM, per-orbital
-    sectors) are accepted."""
-    from edipack_tpu_torch.solver.core import check_supported
+    """Inputs that slices after the first ported (superc and replica baths
+    with the joint modes; finite T, χ, RDM and per-orbital sectors with the
+    extras) are accepted: the solver takes the configuration as it is."""
     kw = dict(norb=1, nbath=2, nspin=1)
     if field == "ed_finite_temp":
         kw["lanc_nstates_total"] = 4
     cfg = default_config(**kw).replace(**{field: value})
-    if field in ("ed_finite_temp", "chispin_flag", "rdm_flag",
-                 "ed_total_ud"):
-        check_supported(cfg)
-        assert ted.EDSolver(cfg, device="cpu").cfg == cfg
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ted.EDSolver(cfg, device="cpu")
+    assert ted.EDSolver(cfg, device="cpu").cfg == cfg
 
 
 def test_complex_hloc_raises():
+    """A complex Hloc in ed_mode=normal, which raised until the joint
+    slice, is accepted and routed through the nonsu2 solve (its results:
+    tests/test_torch_joint_api.py)."""
     solver = ted.EDSolver(default_config(norb=1, nbath=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.set_hloc(np.full((1, 1, 1, 1), 0.1j))
+    solver.init_solver()
+    solver.set_hloc(np.full((1, 1, 1, 1), 0.1j))
+    assert solver._cplx_normal_active()
+    cfg2, h2, _ = solver._promote_to_nonsu2()
+    assert cfg2.ed_mode == "nonsu2" and cfg2.nspin == 2
+    assert h2[0, 0, 0, 0] == h2[1, 1, 0, 0] == 0.1j
 
 
 @pytest.mark.slow
