@@ -37,12 +37,14 @@ non-zero on any fault):
           solve's at TOL_F32_EXACT
   dmft    the DMFT loop on the card: (a) two Bethe-lattice iterations
           (solve, Δ = (D/2)² G, ed_chi2_fitgf) at norb=2, nbath=4 through
-          B1, held to tests/data/torch_port_golden_dmft_n2b4.json; (b) config
-          2's second iteration: the bath fitted to Δ of the f64 solve above
-          (its first iteration), the restart files written, a new solver
-          started from hamiltonian.restart and state_list.restart, and its
-          ed_solve through B1 with ed_write_files on, checked like the first
-  extras  the normal-mode extras through B1, in f64: (a) the n2b4 extras
+          B1, held to tests/data/torch_port_golden_dmft_n2b4.json; (b) the
+          second iteration of config 2 cut to DMFT_NBATH = 4 bath levels,
+          every Lanczos sector through B1:
+          a cold f64 solve (its first iteration), the bath fitted to its Δ,
+          the restart files written, a new solver started from
+          hamiltonian.restart and state_list.restart, and its ed_solve
+          through B1 with ed_write_files on, checked like the first
+  extras  the normal-mode extras through B1, in f64: the n2b4 extras
           golden (tests/data/torch_port_golden_extras_n2b4.json, from
           edipack_tpu): a T=0 solve with the four χ flags and rdm_flag (χ
           on ν_1..ν_32 of β = 20, RDM, a reduced RDM, energies, sp_dm) and
@@ -50,14 +52,37 @@ non-zero on any fault):
           state complexity; three finite-T solves of one solver (budgets
           and neigen_sector exact, zeta, e0, dens, G, histogram_states.ed
           as text); an ed_total_ud=False solve; a runtime two-body term;
-          each with B1 launches > 0; (b) config 2 cold with the χ flags and
-          rdm_flag, then ed_build_krylov_state_complexity, held by
+          each with B1 launches > 0. The config 2 extras checks run on the
+          ineq phase's sweep
+  ineq    inequivalent sites (EDIneqSolver) through B1: (a) the ineq golden
+          (tests/data/torch_port_golden_ineq.json, from edipack_tpu): three
+          n2b4 sites with a staggered Hloc and per-site uloc_ii / ust_ii, a
+          statics-only call, a full call, fit_gf by L-BFGS-B to (D/2)² G
+          and the second iteration from the fitted baths, every site held
+          at the solve goldens' TOL (the fit and the second iteration at
+          the DMFT golden's), then two superc sites through the per-site
+          loop; (b) EDIneqSolver(2) at config 2's width with the χ flags
+          and rdm_flag, one site-batched sweep: site 1 is config 2 and
+          equals the solve phase's f64 solve (e0 1e-10; dens, docc, G
+          1e-8), site 2 (Hloc -0.1, Uloc 2.5) has its ground-state sector
+          re-solved through KronMatvec (e0 1e-10), the GF weights of
+          every diagonal channel of both sum to 1 (1e-10); on both sites,
           identities B1 does not enter: each χ channel's + weights sum to
           Σ_i w_i ‖Oψ_i‖² (and, for spin and dens, to (n - 2d)/4 and n + 2d
           of the solve's dens and docc), the first moments of the spin and
           pair channels of orbital 0 against KronMatvec, the RDM's trace,
-          Hermiticity, eigenvalues and diagonal, and the Krylov
-          distributions' normalization and K(0) = 0
+          Hermiticity, eigenvalues and diagonal; then site 1's Krylov state
+          complexity (normalization, K(0) = 0)
+  capi    the C library: libedipack_tpu_torch_c.so built by
+          edipack_tpu_torch/capi/build.py (gcc, this interpreter's
+          sysconfig), the edtpu_* and the reference-ABI lattice drivers of
+          capi/drivers/ built and run, each in a process of its own with
+          EDIPACK_TPU_TORCH_DEVICE=cuda and ED_FUSED_MATVEC=always, at the
+          ineq golden's two-site case: their printed dens, docc, energies
+          and G held to the golden at TOL, no traceback on stderr, B1
+          launches (from EDIPACK_TPU_TORCH_LAUNCH_LOG) > 0; then a bad
+          EDIPACK_TPU_TORCH_DEVICE must make edtpu_init fail with the
+          allowlist's message
   joint   the superc / nonsu2 modes in complex128 (no kernel of the four
           is on this path: the JAX joint operators are plain jnp, the
           port's are PyTorch): (a) the joint golden
@@ -80,9 +105,11 @@ non-zero on any fault):
 
 Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
 power-step entry for B3, the row-gather Lanczos for B4, and for B1 also
-config 2's second DMFT iteration, the extras golden's solves and Krylov
-chains, and config 2's extras solve with its Krylov chains) runs with
-every launch counter set to 0 just before it and read just after. The line before
+the second DMFT iteration, the extras golden's solves and Krylov
+chains, the ineq golden's sweeps, config 2's two-site sweep and its
+Krylov chains, and each C driver, whose process writes its counts at
+finalize) runs with every launch counter set to 0 just before it and read
+just after. The line before
 the last is the kernel report (JSON), printed only once every phase has
 run: ``launches`` from those paths, ``max_abs_err``, ``ms`` (L2 flushed),
 ``ms_back_to_back``, ``plain_ms`` and ``library_ms`` (the faster of the
@@ -111,6 +138,7 @@ GOLDEN = os.path.join(DATA, "torch_port_golden_n2b4.json")
 GOLDEN_F32 = os.path.join(DATA, "torch_port_golden_f32_n2b4.json")
 GOLDEN_DMFT = os.path.join(DATA, "torch_port_golden_dmft_n2b4.json")
 GOLDEN_EXTRAS = os.path.join(DATA, "torch_port_golden_extras_n2b4.json")
+GOLDEN_INEQ = os.path.join(DATA, "torch_port_golden_ineq.json")
 KANAMORI = dict(uloc=[2.0, 2.0], ust=1.2, jh=0.2, jx=0.15, jp=0.15)
 # tests/test_pallas_kron.py's sector model
 KRON_SMALL = dict(uloc=[2.0, 1.5], ust=0.7, jh=0.1, jx=0.1, jp=0.1, xmu=0.2)
@@ -136,6 +164,11 @@ E0_F32_RTOL = 1e-5        # config 2: f32 e0 vs f64 e0, relative
 TOL_DMFT = dict(e0=1e-7, dens=1e-7, docc=1e-7, gimp=1e-7, sigma=1e-5,
                 bath=1e-7)
 WBAND = 1.0               # Bethe lattice half-bandwidth D
+# the dmft phase's second iteration runs config 2 with 4 bath levels, every
+# Lanczos sector through B1 (ed_fused_matvec "always"): at nbath 6 it took
+# 133.4 s plus its first iteration and the script ran toward 1,095 s of its
+# 1,200 s limit; at nbath 5 (its fit alone 25.5 s) the script took 1,050 s
+DMFT_NBATH = 4
 # the extras golden: f64 on both sides, the solve golden's TOL; χ relative
 # to its largest value; budgets and neigen_sector exact
 TOL_EXTRAS = dict(TOL, chi=1e-8, sp_dm=1e-8, rdm=1e-8, krylov=1e-8,
@@ -149,6 +182,15 @@ CHI_FLAGS = dict(chispin_flag=True, chidens_flag=True, chipair_flag=True,
 # TOL_F32_EXACT, as the f32 golden file's (tests/test_torch_f32.py): on the
 # solve's own grid (beta = 1000) the lowest frequencies magnify the f32
 # error of the low excitation energies
+# the ineq golden: the solve goldens' TOL for the statics-only call and the
+# first iteration, the DMFT golden's for the fit and the second iteration
+# (a fitted bath is held at 1e-7, and the second iteration starts from it)
+TOL_INEQ_LOOP2 = dict(TOL_DMFT, energies=TOL_DMFT["dens"])
+# config 2's second site in the sweep (ineq (b)): Hloc -0.1 on both
+# orbitals, Uloc 2.5
+INEQ_SITE2_HLOC = -0.1
+INEQ_SITE2_ULOC = 2.5
+SUMRULE_TOL = 1e-10       # GF weights of a diagonal channel sum to 1
 BETA_GRID = 20.0
 NMATS = 32
 DEVICE = "cuda"
@@ -717,7 +759,7 @@ def phase_solve(report: dict) -> None:
               for qn, st in _kept(res).items()}
     obs64 = _observables()
     ed.ed_finalize_solver()
-    # the first DMFT iteration of the dmft phase
+    # the lone solve that site 1 of the ineq phase's sweep is held to
     report["loop1"] = dict(cfg=cfg, res=res, wall=wall)
     del tiles, mv
     # config 2 in f32 through ed_solve (auto: B2 for dim >= 2^17)
@@ -803,8 +845,9 @@ def _lanczos_nev(res, neigen) -> dict:
 
 
 def phase_dmft(report: dict) -> None:
-    """(a) the n2b4 DMFT golden; (b) config 2's second DMFT iteration from
-    the restart files its first (phase_solve's f64 solve) writes."""
+    """(a) the n2b4 DMFT golden; (b) the second DMFT iteration of config 2
+    cut to DMFT_NBATH bath levels, from the restart files its first
+    iteration (a cold f64 solve) writes."""
     import tempfile
     import torch
     import edipack_tpu_torch as ed
@@ -815,8 +858,14 @@ def phase_dmft(report: dict) -> None:
     from edipack_tpu_torch.ops.lanczos import eigsh_lowest
     from edipack_tpu_torch.ops.matvec import KronMatvec
     _dmft_golden(report)
-    loop1 = report.pop("loop1")
-    res1 = loop1["res"]
+    cfg1 = ed.default_config(norb=2, nbath=DMFT_NBATH, nspin=1, ed_verbose=0,
+                             ed_fused_matvec="always", **KANAMORI)
+    bath = ed.ed_init_solver(cfg=cfg1, device=DEVICE)
+    ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
+    res1, _, wall1 = _solve_once(f"config 2 at nbath={DMFT_NBATH}, DMFT "
+                                 f"loop 1 f64", cfg1, bath)
+    ed.ed_finalize_solver()
+    loop1 = dict(cfg=cfg1, res=res1, wall=wall1)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dmft_") as out:
         cfg = ed.set_config(loop1["cfg"].replace(
             ed_write_files=True, ed_output_dir=out,
@@ -835,14 +884,14 @@ def phase_dmft(report: dict) -> None:
         for _ in range(20):
             fun(bath2[idx])
         eval_ms = (time.perf_counter() - t0) / 20 * 1e3
-        print(f"[dmft] config 2 fit (host CPU, {len(idx)} parameters, lfit "
+        print(f"[dmft] nbath={DMFT_NBATH} fit (host CPU, {len(idx)} parameters, lfit "
               f"{cfg.lfit}, cg_method {cfg.cg_method}): {fit_s:.2f} s "
               f"({fit_s / loop1['wall']:.3f} of loop 1's solve), chi2 "
               f"{chi_before:.6e} -> {chi_after:.6e}; chi2 and gradient "
               f"{eval_ms:.3f} ms an evaluation, so about "
               f"{fit_s / eval_ms * 1e3:.0f} evaluations")
         if not (np.all(np.isfinite(bath2)) and chi_after < chi_before):
-            fail(f"config 2 fit: chi2 {chi_before:.3e} -> {chi_after:.3e}")
+            fail(f"DMFT fit: chi2 {chi_before:.3e} -> {chi_after:.3e}")
         # 2. the restart files: the first iteration's outputs, the bath
         edio.write_all_outputs(cfg, res1)
         ed.ed_save_array_as_bath(bath2, cfg=cfg)
@@ -854,8 +903,8 @@ def phase_dmft(report: dict) -> None:
         ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
         neigen = edio.read_state_list_restart(cfg, res1.table)
         # 4. the second iteration through ed_solve
-        res2, counts, wall = _solve_once("config 2 DMFT loop 2 f64", cfg,
-                                         None)
+        res2, counts, wall = _solve_once(f"config 2 at nbath={DMFT_NBATH}, "
+                                         f"DMFT loop 2 f64", cfg, None)
         print(f"[dmft]   neigen_sector from state_list.restart: "
               f"{sorted(set(neigen.tolist()))} (loop 1: "
               f"{cfg.lanc_nstates_sector}); loop 1 wall {loop1['wall']:.2f} "
@@ -864,7 +913,7 @@ def phase_dmft(report: dict) -> None:
         if bad:
             fail(f"loop 2 did not take neigen from state_list.restart: {bad}")
         if counts["B1"] <= 0:
-            fail("config 2 DMFT loop 2 did not launch B1")
+            fail("DMFT loop 2 did not launch B1")
         obs = np.loadtxt(os.path.join(out, "observables_last.ed"))
         dev_d = float(np.abs(obs[:cfg.norb] - ed.ed_get_dens()).max())
         print(f"[dmft]   observables_last.ed dens vs ed_get_dens: {dev_d:.3e}"
@@ -1221,40 +1270,11 @@ def _rdm_checks(res) -> None:
         fail("config 2 RDM identities")
 
 
-def _extras_config2(report: dict) -> None:
-    """(b) config 2 at full width with the χ flags and rdm_flag, then the
-    Krylov state complexity; held by identities that B1 does not enter."""
-    import torch
-    import edipack_tpu_torch as ed
-    from edipack_tpu_torch.solver import core
-    cfg = ed.default_config(norb=2, nbath=6, nspin=1, ed_verbose=0,
-                            **KANAMORI, **CHI_FLAGS)
-    bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
-    ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
-    # B1 launches of the χ phase: read around build_chi_normal
-    chi_counts: dict = {}
-    build_chi = core.build_chi_normal
-
-    def counted(*args, **kw):
-        before = read_counts()["B1"]
-        try:
-            return build_chi(*args, **kw)
-        finally:
-            chi_counts["B1"] = read_counts()["B1"] - before
-
-    core.build_chi_normal = counted
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        res, counts, wall = _solve_once("config 2 f64 cold, chi and rdm",
-                                        cfg, bath)
-    finally:
-        core.build_chi_normal = build_chi
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[extras]   B1 launches: solve {counts['B1']} (of them the chi "
-          f"phase {chi_counts['B1']}); peak device memory {peak:.2f} GiB")
-    if chi_counts["B1"] <= 0:
-        fail("config 2 chi phase launched no B1")
-    # sum rules
+def _extras_checks(res, label: str) -> None:
+    """The extras identities at config 2's width on one solve's result:
+    each χ channel's + weights against Σ w‖Oψ‖² (and, for spin and dens,
+    the solve's dens and docc), the first moments of the spin and pair
+    channels of orbital 0 against KronMatvec, and the RDM's identities."""
     norms = _chi_norms(res)
     dens, docc = res.dens, res.docc
     worst = 0.0
@@ -1271,47 +1291,379 @@ def _extras_config2(report: dict) -> None:
             f = dens[key[1]] + 2 * docc[key[1]]
             extra = f", n + 2d {f:.12f}"
             worst = max(worst, abs(got - f) / abs(f))
-        print(f"[extras]   sum rule {key}: + weights {got:.12f}, "
+        print(f"[extras]   {label} sum rule {key}: + weights {got:.12f}, "
               f"Σ w‖Oψ‖² {ref:.12f}{extra}")
-    print(f"[extras]   sum rules: worst rel {worst:.3e} (limit "
+    print(f"[extras]   {label} sum rules: worst rel {worst:.3e} (limit "
           f"{IDENTITY_RTOL})")
     if not worst <= IDENTITY_RTOL:
-        fail(f"config 2 chi sum rules off by {worst:.3e}")
+        fail(f"{label} chi sum rules off by {worst:.3e}")
     for key in (("spin", 0, 0), ("pair", 0, 0)):
         got, want, scale = _first_moment(res, key)
         rel = abs(got - want) / scale
-        print(f"[extras]   first moment {key}: Σ weight × pole {got:.12e}, "
-              f"KronMatvec {want:.12e}, rel to {scale:.6e}: {rel:.3e} "
-              f"(limit {IDENTITY_RTOL})")
+        print(f"[extras]   {label} first moment {key}: Σ weight × pole "
+              f"{got:.12e}, KronMatvec {want:.12e}, rel to {scale:.6e}: "
+              f"{rel:.3e} (limit {IDENTITY_RTOL})")
         if not rel <= IDENTITY_RTOL:
-            fail(f"config 2 chi first moment {key} off by {rel:.3e}")
+            fail(f"{label} chi first moment {key} off by {rel:.3e}")
     _rdm_checks(res)
+
+
+def phase_extras(report: dict) -> None:
+    # (b), config 2 with the extras, runs on the sweep's sites (phase ineq)
+    _extras_golden(report)
+
+
+# ---------------------------------------------------------------------------
+# phase ineq: inequivalent sites (EDIneqSolver) — normal-mode sites as one
+# site-batched sweep through B1, superc sites one after another
+# ---------------------------------------------------------------------------
+
+
+def _site_hloc(norb: int, values) -> np.ndarray:
+    return np.stack([np.eye(norb)[None, None] * v for v in values])
+
+
+def _ineq_check(tag: str, solver, recs: list, z, keys, tol: dict) -> None:
+    """Every site's result against the golden records ``recs``."""
+    g = solver.get_gimp(z) if "gimp" in keys else None
+    sig = solver.get_sigma(z) if "sigma" in keys else None
+    for n, (s, want) in enumerate(zip(solver.solvers, recs)):
+        res = s.result
+        got = dict(e0=res.e0, evals=np.asarray(res.evals), dens=res.dens,
+                   docc=res.docc, energies=res.energies)
+        for k in keys:
+            ref = _cplx(want[k]) if k in ("gimp", "sigma") else want[k]
+            val = {"gimp": g, "sigma": sig}[k][n] if k in ("gimp", "sigma") \
+                else got[k]
+            _check_close(f"{tag} site {n} {k}", val, ref,
+                         tol["e0" if k == "evals" else k])
+
+
+def _ineq_golden(report: dict) -> None:
+    """(a) tests/data/torch_port_golden_ineq.json: three n2b4 sites through
+    B1 (statics-only call, full call, fit_gf, second iteration), then two
+    superc sites through the per-site loop."""
+    import torch
+    import edipack_tpu_torch as ed
+    with open(GOLDEN_INEQ) as fh:
+        gold = json.load(fh)
+    cfg = ed.set_config(ed.default_config(**gold["config"], ed_verbose=0,
+                                          ed_fused_matvec="always"))
+    z = _z(cfg.beta)
+    solver = ed.EDIneqSolver(len(gold["hloc"]), cfg, device=DEVICE)
+    baths = solver.init_solver()
+    if not np.array_equal(baths, np.asarray(gold["bath"])):
+        fail("ineq golden: the default baths differ from the file's")
+    solver.set_hloc(_site_hloc(cfg.norb, gold["hloc"]))
+    over = dict(uloc_ii=np.array(gold["uloc_ii"]),
+                ust_ii=np.array(gold["ust_ii"]))
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    kr = ed.ed_build_krylov_state_complexity()
+    solver.solve(baths, flag_gf=False, **over)
+    _ineq_check("ineq statics", solver, gold["statics"], z,
+                ("e0", "dens", "docc", "energies"), TOL)
+    t1 = time.perf_counter()
+    solver.solve(baths, **over)
+    _ineq_check("ineq loop 1", solver, gold["loop1"], z,
+                ("e0", "evals", "dens", "docc", "energies", "gimp", "sigma"),
+                TOL)
+    t2 = time.perf_counter()
+    fit = solver.fit_gf((WBAND / 2.0) ** 2 * solver.get_gimp(), baths)
+    _check_close("ineq fitted baths", fit, np.asarray(gold["fit"]),
+                 TOL_DMFT["bath"])
+    t3 = time.perf_counter()
+    solver.solve(fit)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    n = read_counts()["B1"]
+    _ineq_check("ineq loop 2", solver, gold["loop2"], z,
+                ("e0", "dens", "docc", "energies", "gimp", "sigma"),
+                TOL_INEQ_LOOP2)
+    print(f"[ineq] (a) three n2b4 sites: statics-only sweep {t1 - t0:.2f} s, "
+          f"full sweep {t2 - t1:.2f} s, fit_gf {t3 - t2:.2f} s, second "
+          f"sweep {t4 - t3:.2f} s; B1 launches {n}; matvecs per site "
+          f"{[s.result.n_matvecs for s in solver.solvers]}")
+    if n <= 0:
+        fail("ineq golden: no B1 launch")
+    report["B1_launches_ineq_golden"] = n
+    solver.finalize()
+    sc = gold["superc"]
+    cfg = ed.set_config(ed.default_config(**sc["config"], ed_verbose=0))
+    solver = ed.EDIneqSolver(len(sc["hloc"]), cfg, device=DEVICE)
+    baths = solver.init_solver()
+    solver.set_hloc(_site_hloc(cfg.norb, sc["hloc"]))
+    t0 = time.perf_counter()
+    solver.solve(baths, uloc_ii=np.array(sc["uloc_ii"]))
+    g, f = solver.get_gimp(z), solver.get_gimp(z, typ="a")
+    for n, (s, want) in enumerate(zip(solver.solvers, sc["sites"])):
+        res = s.result
+        for k, val in (("e0", res.e0), ("dens", res.dens),
+                       ("docc", res.docc), ("phi", res.phisc),
+                       ("gimp", g[n]), ("impf", f[n])):
+            ref = _cplx(want[k]) if k in ("gimp", "impf") else want[k]
+            _check_close(f"ineq superc site {n} {k}", val, ref,
+                         TOL_CROSS[k])
+    print(f"[ineq] (a) two superc sites (per-site loop): "
+          f"{time.perf_counter() - t0:.2f} s")
+    solver.finalize()
+
+
+def _gf_weight_sums(res) -> float:
+    """The worst |Σw - 1| over the diagonal channels of the normal GF."""
+    keys = [k for k in res.gf.channels if k[0] == "g" and k[2] == k[3]]
+    if not keys:
+        fail("no diagonal GF channel")
+    return max(abs(float(np.real(res.gf.packed(k)[0].sum())) - 1.0)
+               for k in keys)
+
+
+def _ineq_config2(report: dict) -> None:
+    """(b) EDIneqSolver(2) at config 2's width in one sweep, with the χ
+    flags and rdm_flag: site 1 is config 2 (held to phase_solve's f64
+    solve), site 2 has Hloc -0.1 and Uloc 2.5 (its ground sector re-solved
+    through KronMatvec); the GF weights of both; the extras identities on
+    both sites and the Krylov state complexity of site 1."""
+    import torch
+    import edipack_tpu_torch as ed
+    from edipack_tpu_torch.bath.dmft_bath import bath_to_array
+    from edipack_tpu_torch.models.normal import build_normal_sector_op
+    from edipack_tpu_torch.ops.lanczos import eigsh_lowest
+    from edipack_tpu_torch.ops.matvec import KronMatvec
+    from edipack_tpu_torch.solver import core
+    from edipack_tpu_torch.solver.krylov import krylov_state_complexity
+    ref = report["loop1"]["res"]
+    cfg = ed.set_config(ed.default_config(norb=2, nbath=6, nspin=1,
+                                          ed_verbose=0, **KANAMORI,
+                                          **CHI_FLAGS))
+    solver = ed.EDIneqSolver(2, cfg, device=DEVICE)
+    baths = solver.init_solver()
+    if not np.array_equal(baths[0], bath_to_array(ref.bath)):
+        fail("ineq config 2: site 1's bath is not config 2's")
+    solver.set_hloc(_site_hloc(2, [0.0, INEQ_SITE2_HLOC]))
+    uloc = np.array([KANAMORI["uloc"], [INEQ_SITE2_ULOC] * 2])
+    # B1 launches of the χ phases: read around build_chi_normal
+    chi_counts = [0]
+    build_chi = core.build_chi_normal
+
+    def counted(*args, **kw):
+        before = read_counts()["B1"]
+        try:
+            return build_chi(*args, **kw)
+        finally:
+            chi_counts[0] += read_counts()["B1"] - before
+
+    core.build_chi_normal = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        results = solver.solve(baths, uloc_ii=uloc)
+        torch.cuda.synchronize()
+    finally:
+        core.build_chi_normal = build_chi
+    wall = time.perf_counter() - t0
+    n = read_counts()["B1"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for s, res in enumerate(results):
+        print(f"[ineq] (b) site {s + 1}: e0 {res.e0:.12f}, matvecs "
+              f"{res.n_matvecs}, phases " + ", ".join(
+                  f"{k} {v:.2f} s" for k, v in res.timings.items()))
+    print(f"[ineq] (b) config 2 two-site sweep: wall {wall:.2f} s (phase_"
+          f"solve's lone f64 solve {report['loop1']['wall']:.2f} s); B1 "
+          f"launches {n} (of them the chi phases {chi_counts[0]}); peak "
+          f"device memory {peak:.2f} GiB")
+    if n <= 0 or chi_counts[0] <= 0:
+        fail(f"ineq config 2: B1 launches {n}, chi phases {chi_counts[0]}")
+    z = _z(cfg.beta)
+    site1 = results[0]
+    for k, got, want in (("e0", site1.e0, ref.e0),
+                         ("dens", site1.dens, ref.dens),
+                         ("docc", site1.docc, ref.docc),
+                         ("gimp", site1.get_gimp(z), ref.get_gimp(z))):
+        _check_close(f"ineq config 2 site 1 vs the lone solve {k}", got,
+                     want, TOL[k])
+    site2 = results[1]
+    st = site2.diag.state_list.states[0]
+    for other in site2.diag.state_list.states:
+        if other.energy < st.energy:
+            st = other
+    sec = site2.table.sector(st.sector)
+    mv = KronMatvec(build_normal_sector_op(site2.cfg, sec, site2.hloc,
+                                           site2.um, site2.bath),
+                    torch.device(DEVICE))
+    vals, _ = eigsh_lowest(mv, mv.dim, 1, tol=1e-14)
+    dev_e0 = abs(float(vals[0]) - site2.e0)
+    print(f"[ineq] (b) site 2 ground-state sector {sec.qn} dim {sec.dim}: "
+          f"KronMatvec e0 {vals[0]:.12f}, sweep e0 {site2.e0:.12f}, |diff| "
+          f"{dev_e0:.3e} (limit {TOL['e0']})")
+    if not dev_e0 <= TOL["e0"]:
+        fail(f"ineq config 2 site 2: e0 off KronMatvec's by {dev_e0:.3e}")
+    del mv
+    for s, res in enumerate(results):
+        dev = _gf_weight_sums(res)
+        print(f"[ineq] (b) site {s + 1}: GF weights per diagonal channel, "
+              f"worst |Σw - 1| {dev:.3e} (limit {SUMRULE_TOL})")
+        if not dev <= SUMRULE_TOL:
+            fail(f"ineq config 2 site {s + 1}: GF weights off by {dev:.3e}")
+    for s, res in enumerate(results):
+        _extras_checks(res, f"config 2 site {s + 1}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    kr = krylov_state_complexity(site1)
     torch.cuda.synchronize()
     kry_s = time.perf_counter() - t0
     kry = read_counts()["B1"]
     worst_p = max(float(np.abs(p.sum(0) - 1.0).max())
                   for p in kr.distribution.values())
     k0 = max(abs(float(k[0])) for k in kr.complexity.values())
-    print(f"[extras]   Krylov state complexity: {kry_s:.2f} s, B1 launches "
-          f"{kry}, keys {sorted(kr.complexity)}; distribution sums to 1 "
-          f"within {worst_p:.3e} (limit {RDM_TOL}), |K(0)| {k0:.3e}; K(tmax) "
-          + ", ".join(f"{k}: {v[-1]:.6f}" for k, v in
-                      sorted(kr.complexity.items())))
+    print(f"[extras]   config 2 site 1 Krylov state complexity: {kry_s:.2f} "
+          f"s, B1 launches {kry}, keys {sorted(kr.complexity)}; "
+          f"distribution sums to 1 within {worst_p:.3e} (limit {RDM_TOL}), "
+          f"|K(0)| {k0:.3e}; K(tmax) " + ", ".join(
+              f"{k}: {v[-1]:.6f}" for k, v in sorted(kr.complexity.items())))
     if not (worst_p <= RDM_TOL and k0 <= RDM_TOL and kry > 0):
         fail("config 2 Krylov state complexity")
-    report["B1_launches_extras"] = counts["B1"] + kry
-    report["extras"] = dict(wall_s=wall, matvecs=res.n_matvecs,
-                            krylov_s=kry_s, peak_gib=peak, **res.timings)
-    ed.ed_finalize_solver()
+    report["B1_launches_ineq"] = n
+    report["B1_launches_extras"] = chi_counts[0] + kry
+    report["ineq"] = dict(wall_s=wall, krylov_s=kry_s, peak_gib=peak,
+                          timings=[r.timings for r in results])
+    solver.finalize()
+    del report["loop1"]
 
 
-def phase_extras(report: dict) -> None:
-    _extras_golden(report)
-    _extras_config2(report)
+def phase_ineq(report: dict) -> None:
+    t0 = time.perf_counter()
+    _ineq_golden(report)
+    print(f"[ineq] (a) golden in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    _ineq_config2(report)
+    print(f"[ineq] (b) config 2 sweep and its checks in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase capi: the C library (edipack_tpu_torch/capi) and two C drivers
+# ---------------------------------------------------------------------------
+
+CAPI_DRIVERS = ("edtpu_lattice", "compat_lattice")
+CAPI_BAD_DEVICE = "cpu'); import os; ('"
+
+
+def _capi_run(exe: str, args, env: dict) -> tuple:
+    t0 = time.perf_counter()
+    out = subprocess.run([exe, *map(str, args)], capture_output=True,
+                         text=True, env=env, timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def phase_capi(report: dict) -> None:
+    """Build libedipack_tpu_torch_c.so and the edtpu_* and reference-ABI
+    lattice drivers (capi/drivers/), run both at the ineq golden's two-site
+    case on the card through B1 (at once, with a run under a bad
+    EDIPACK_TPU_TORCH_DEVICE, which must fail edtpu_init with its
+    message), and hold their printed numbers to the golden; a traceback on
+    a driver's stderr fails."""
+    import shutil
+    import sysconfig
+    from edipack_tpu_torch.capi import build
+    inc = build.python_include()
+    print(f"[capi] python {sysconfig.get_config_var('VERSION')}: Python.h "
+          f"under {inc}: {(inc / 'Python.h').exists()}; gcc "
+          f"{shutil.which('gcc')}")
+    t0 = time.perf_counter()
+    lib = build.build()
+    print(f"[capi] {lib.relative_to(ROOT)} ready in "
+          f"{time.perf_counter() - t0:.2f} s (gcc {build.build_seconds:.2f} "
+          f"s)")
+    with open(GOLDEN_INEQ) as fh:
+        gold = json.load(fh)["capi"]
+    work = os.path.join(ROOT, "build", "chip_smoke_capi")
+    os.makedirs(work, exist_ok=True)
+    exes = {}
+    t0 = time.perf_counter()
+    for name in CAPI_DRIVERS:
+        exes[name] = os.path.join(work, name)
+        out = subprocess.run(
+            ["gcc", "-O2", *build.include_flags(), "-o", exes[name],
+             os.path.join(build.CAPI_DIR, "drivers", name + ".c"),
+             *build.link_flags(lib)], capture_output=True, text=True)
+        if out.returncode != 0:
+            fail(f"capi: driver {name} does not build:\n{out.stderr}")
+    print(f"[capi] drivers built in {time.perf_counter() - t0:.2f} s")
+    config = dict(gold["config"], ed_fused_matvec="always", ed_verbose=0)
+    path_in = os.path.join(work, "inputED.in")
+    with open(path_in, "w") as fh:
+        for k, v in config.items():
+            v = ",".join(map(str, v)) if isinstance(v, list) else v
+            fh.write(f"{k.upper()}={v}\n")
+    cfg_norb, lm, nlat = config["norb"], config["lmats"], gold["nlat"]
+    args = {"edtpu_lattice": (path_in, config.get("nspin", 1), cfg_norb, lm,
+                              nlat, gold["hstag"]),
+            "compat_lattice": (path_in, nlat, gold["hstag"])}
+    # the two drivers and the bad-device run at once, each in a process of
+    # its own on the one card (their solves are mostly host work)
+    from concurrent.futures import ThreadPoolExecutor
+    logs = {name: os.path.join(work, name + ".launches.json")
+            for name in CAPI_DRIVERS}
+    env = dict(os.environ, PYTHONPATH=ROOT, EDIPACK_TPU_TORCH_DEVICE="cuda")
+    for log in logs.values():
+        if os.path.exists(log):
+            os.remove(log)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(CAPI_DRIVERS) + 1) as pool:
+        runs = {name: pool.submit(_capi_run, exes[name], args[name], dict(
+            env, EDIPACK_TPU_TORCH_LAUNCH_LOG=logs[name]))
+                for name in CAPI_DRIVERS}
+        bad = pool.submit(_capi_run, exes["edtpu_lattice"],
+                          args["edtpu_lattice"],
+                          dict(env, EDIPACK_TPU_TORCH_DEVICE=CAPI_BAD_DEVICE))
+        runs = {name: f.result() for name, f in runs.items()}
+        bad = bad.result()
+    print(f"[capi] the two drivers and the bad-device run together: "
+          f"{time.perf_counter() - t0:.2f} s")
+    total = 0
+    for name in CAPI_DRIVERS:
+        out, wall = runs[name]
+        if out.returncode != 0 or "Traceback" in out.stderr:
+            fail(f"capi {name}: rc {out.returncode}\n{out.stdout[-2000:]}"
+                 f"\n{out.stderr[-4000:]}")
+        vals = {}
+        for line in out.stdout.splitlines():
+            key, cnt, *rest = line.split()
+            vals[key] = np.array([float(x) for x in rest])
+            if len(rest) != int(cnt):
+                fail(f"capi {name}: bad line {line[:80]}")
+        with open(logs[name]) as fh:
+            launched = json.load(fh)
+        order = "C" if name == "edtpu_lattice" else "F"
+        g = vals["G"][0::2] + 1j * vals["G"][1::2]
+        for key, got, want, tol in (
+                ("dens", vals["DENS"].reshape(nlat, cfg_norb, order=order),
+                 gold["dens"], TOL["dens"]),
+                ("docc", vals["DOCC"].reshape(nlat, cfg_norb, order=order),
+                 gold["docc"], TOL["docc"]),
+                ("energies", vals["EIMP"].reshape(nlat, 4, order=order),
+                 gold["eimp"], TOL["energies"]),
+                ("gimp", g.reshape(nlat, 1, 1, cfg_norb, cfg_norb, lm,
+                                   order=order),
+                 _cplx(gold["gimp"]), TOL["gimp"])):
+            _check_close(f"capi {name} {key}", got, np.asarray(want), tol)
+        print(f"[capi] {name}: wall {wall:.2f} s, kernel launches "
+              f"{launched}, stderr {len(out.stderr)} bytes without a "
+              f"traceback")
+        if launched["B1"] <= 0:
+            fail(f"capi {name}: no B1 launch")
+        total += launched["B1"]
+    report["B1_launches_capi"] = total
+    out, wall = bad
+    print(f"[capi] EDIPACK_TPU_TORCH_DEVICE={CAPI_BAD_DEVICE!r}: rc "
+          f"{out.returncode}, {out.stdout.strip()[:160]!r} ({wall:.2f} s)")
+    if out.returncode == 0 or "is not one of" not in out.stdout:
+        fail("capi: a bad EDIPACK_TPU_TORCH_DEVICE was not refused")
 
 
 # ---------------------------------------------------------------------------
@@ -1331,7 +1683,6 @@ JOINT_ROUTES = (("ell", {}), ("direct", dict(ed_sparse_h=False)),
 TOL_CROSS = dict(e0=1e-10, gimp=1e-8, impf=1e-8, phi=1e-8, dens=1e-8,
                  docc=1e-8)
 RESID_RTOL = 1e-8
-SUMRULE_TOL = 1e-10
 JOINT_RTOL = 1e-12        # the 2.7M-state operators against each other
 CONFIG3 = dict(norb=2, nbath=4, nspin=1, ed_mode="superc", uloc=[-2.0, -2.0],
                ust=-1.0, jh=0.25, jx=0.25, jp=0.25, deltasc=0.02)
@@ -1711,6 +2062,9 @@ def kernel_report(report: dict) -> list:
              launches_dmft_loop2=report["B1_launches_dmft"],
              launches_extras_golden=report["B1_launches_extras_golden"],
              launches_extras_config2=report["B1_launches_extras"],
+             launches_ineq_golden=report["B1_launches_ineq_golden"],
+             launches_ineq=report["B1_launches_ineq"],
+             launches_capi=report["B1_launches_capi"],
              max_abs_err=max(s["err64"] for s in report["fused"]),
              ms=big["b1"], ms_back_to_back=big["b1_b2b"],
              plain_ms=big["b1_plain"],
@@ -1772,6 +2126,7 @@ def main() -> int:
     for name, fn in (("build", phase_build), ("kernel", phase_kernel),
                      ("golden", phase_golden), ("solve", phase_solve),
                      ("dmft", phase_dmft), ("extras", phase_extras),
+                     ("ineq", phase_ineq), ("capi", phase_capi),
                      ("joint", phase_joint)):
         t0 = time.perf_counter()
         fn(report)

@@ -11,12 +11,17 @@ temperature, per-orbital sectors with ``ed_total_ud=False``, runtime
 two-body terms, Krylov complexity) and the DMFT loop around it
 (``ed_chi2_fitgf``, ``ed_check_convergence``, ``ed_search_variable``, the
 bath symmetry helpers, restart files and ``ed_write_files`` text outputs)
-run in f64 (or f32 with
+and inequivalent impurities (``EDIneqSolver``: real-space DMFT, normal-mode
+sites as one batched sweep) run in f64 (or f32 with
 ``ed_precision="float32"``) on one explicit ``torch.device`` (default
 ``"cuda"``). Large sectors apply H through the sparse row-gather CUDA kernel
 ``csrc/row_gather.cu``; the rest through dense Kronecker-factor matmuls.
-This package never imports ``jax`` or ``edipack_tpu``.
+This package never imports ``jax`` or ``edipack_tpu``. A C library over it
+(``capi/``, the ``edtpu_*`` API and the reference EDIpack C-binding names)
+embeds the interpreter; ``capi/build.py`` builds it.
 """
+__version__ = "0.1.0"     # edipack_tpu's version, whose API this ports
+
 from .config import EDConfig, default_config, ed_read_input, get_config, set_config
 from .main import (
     EDSolver,
@@ -99,6 +104,7 @@ from .main import (
     ed_solve,
     ed_update_input,
 )
+from .ineq import EDIneqSolver
 from .bath.user import (
     ed_break_symmetry_bath,
     ed_enforce_normal_bath,
@@ -118,4 +124,5 @@ from .bath.user import (
 )
 
 __all__ = [k for k in dir() if k.startswith("ed_") or k in
-           ("EDConfig", "EDSolver", "default_config")]
+           ("EDConfig", "EDSolver", "EDIneqSolver",
+                                    "default_config", "__version__")]

@@ -3,7 +3,8 @@ ED_MAIN.f90:164-228): sector operators -> diagonalization -> Green's
 functions -> observables -> susceptibilities -> impurity RDM, with all
 products retained on the result object for the `ed_*` getters; counterpart
 of edipack_tpu.solver.core. superc and nonsu2 solves go to
-solver.core_joint.solve_impurity_joint.
+solver.core_joint.solve_impurity_joint; several normal-mode sites
+(real-space DMFT) go to :func:`solve_impurity_sites` as one sweep.
 
 Routing of a sector's matvec (``ed_fused_matvec``), in the working dtype
 (``ed_precision``: the f64 kernel B1 or the f32 kernel B2):
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from types import SimpleNamespace
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +37,7 @@ from ..ops.fused_normal import build_fused_normal
 from ..ops.matvec import KronMatvec
 from ..sectors import Sector, SectorTable
 from ..umatrix import Umatrix
-from .diag import DiagResult, diagonalize
+from .diag import DiagResult, diagonalize, diagonalize_sites
 from .greens import (GFMatrix, build_gf_normal, eval_dimp, eval_gf_normal,
                      sigma_normal)
 from .chi import build_chi_normal
@@ -259,28 +260,12 @@ def _normal_builders(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                            op_cache=op_cache, mv_cache=mv_cache)
 
 
-def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
-                   bath: DmftBath, device: torch.device,
-                   neigen_override: Optional[np.ndarray] = None,
-                   sector_mask: Optional[np.ndarray] = None,
-                   hloc_anomalous: Optional[np.ndarray] = None,
-                   flag_gf: bool = True) -> SolveResult:
-    cfg.validate()
-    if cfg.ed_mode != "normal":
-        from .core_joint import solve_impurity_joint
-        return solve_impurity_joint(cfg, hloc, um, bath, device,
-                                    neigen_override=neigen_override,
-                                    sector_mask=sector_mask,
-                                    hloc_anomalous=hloc_anomalous,
-                                    flag_gf=flag_gf)
-    timer = PhaseTimer(device, verbose=cfg.ed_verbose)
-    table = SectorTable(cfg)
-    b = _normal_builders(cfg, table, hloc, um, bath, device)
-
-    with timer.phase("diagonalization"):
-        diag = diagonalize(cfg, table, b.matvec_builder, b.dense_builder,
-                           device, neigen_override=neigen_override,
-                           sector_mask=sector_mask)
+def _finish_normal_site(cfg: EDConfig, table: SectorTable, b,
+                        diag: DiagResult, hloc: np.ndarray, um: Umatrix,
+                        bath: DmftBath, device: torch.device, flag_gf: bool,
+                        timer: PhaseTimer) -> SolveResult:
+    """Green's functions, observables, χ and the impurity RDM of one site
+    from its DiagResult, each phase timed by ``timer``."""
     gf = GFMatrix()
     if flag_gf:
         with timer.phase("greens_functions"):
@@ -305,3 +290,72 @@ def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
                        n_matvecs=sum(mv.n_calls
                                      for mv in b.mv_cache.values()),
                        chi=chi, rdm=rdm)
+
+
+def solve_impurity_sites(cfg: EDConfig, hlocs, ums, baths,
+                         device: torch.device, cfgs=None,
+                         neigen_overrides=None, sector_masks=None,
+                         flag_gf: bool = True) -> List[SolveResult]:
+    """Solve Nineq normal-mode impurity problems as one site-batched sweep
+    (counterpart of edipack_tpu.solver.core.solve_impurity_sites).
+
+    The sites share one SectorTable; each has its own operator builders
+    (Hloc, U, bath; ``cfgs[s]`` may change the interaction values), and
+    their dense sectors share the batched eigh buckets of
+    :func:`~.diag.diagonalize_sites`. The sites must share the sector
+    structure: norb, nbath, nspin, nph, ed_total_ud, bath_type, ed_mode.
+    Each site's result times its own phases; its "diagonalization" is the
+    whole sweep's time, the same for every site.
+    """
+    nsites = len(hlocs)
+    if cfgs is None:
+        cfgs = [cfg] * nsites
+    key = lambda c: (c.norb, c.nbath, c.nspin, c.nph, c.ed_total_ud,
+                     c.bath_type, c.ed_mode)
+    for c in cfgs:
+        c.validate()
+        if key(c) != key(cfg):
+            raise ValueError("solve_impurity_sites: sites must share the "
+                             "sector structure")
+    table = SectorTable(cfg)
+    builders = [_normal_builders(cfgs[s], table, hlocs[s], ums[s], baths[s],
+                                 device) for s in range(nsites)]
+    timer = PhaseTimer(device, verbose=cfg.ed_verbose)
+    with timer.phase("diagonalization"):
+        diags = diagonalize_sites(
+            cfg, table, [b.matvec_builder for b in builders],
+            [b.dense_builder for b in builders], device,
+            neigen_overrides=neigen_overrides, sector_masks=sector_masks)
+    out = []
+    for s in range(nsites):
+        site_timer = PhaseTimer(device)
+        site_timer.timings.update(timer.timings)
+        out.append(_finish_normal_site(cfgs[s], table, builders[s], diags[s],
+                                       hlocs[s], ums[s], baths[s], device,
+                                       flag_gf, site_timer))
+    return out
+
+
+def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
+                   bath: DmftBath, device: torch.device,
+                   neigen_override: Optional[np.ndarray] = None,
+                   sector_mask: Optional[np.ndarray] = None,
+                   hloc_anomalous: Optional[np.ndarray] = None,
+                   flag_gf: bool = True) -> SolveResult:
+    cfg.validate()
+    if cfg.ed_mode != "normal":
+        from .core_joint import solve_impurity_joint
+        return solve_impurity_joint(cfg, hloc, um, bath, device,
+                                    neigen_override=neigen_override,
+                                    sector_mask=sector_mask,
+                                    hloc_anomalous=hloc_anomalous,
+                                    flag_gf=flag_gf)
+    timer = PhaseTimer(device, verbose=cfg.ed_verbose)
+    table = SectorTable(cfg)
+    b = _normal_builders(cfg, table, hloc, um, bath, device)
+    with timer.phase("diagonalization"):
+        diag = diagonalize(cfg, table, b.matvec_builder, b.dense_builder,
+                           device, neigen_override=neigen_override,
+                           sector_mask=sector_mask)
+    return _finish_normal_site(cfg, table, b, diag, hloc, um, bath, device,
+                               flag_gf, timer)

@@ -2,11 +2,13 @@
 
 Parity target: reference ED_DIAG.f90 + ED_DIAG_NORMAL.f90 (:76-296 sweep,
 solver choice :119-252, post-diag trimming and adaptive neigen feedback
-:382-519); counterpart of edipack_tpu.solver.diag.diagonalize:
+:382-519); counterpart of edipack_tpu.solver.diag.diagonalize_sites and
+diagonalize:
 
 * sectors with dim <= lanc_dim_threshold are padded into power-of-two
   buckets and diagonalized with one batched ``torch.linalg.eigh`` per
-  bucket;
+  bucket; with several impurity sites (real-space DMFT,
+  :func:`diagonalize_sites`) every site's sectors join the same buckets;
 * larger sectors run restarted deflated Lanczos, one sector at a time, in
   the operator's dtype (``mv.dtype``: f32 for ``ed_precision="float32"``,
   complex128 for the joint modes);
@@ -23,7 +25,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -116,47 +118,55 @@ def _sanitize_spectrum(i: int, vals: np.ndarray) -> None:
             f"[ed_sanitize] sector {i}: non-finite eigenvalues {vals}")
 
 
-def _dense_buckets(cfg: EDConfig, table: SectorTable, items: List[int],
-                   dense_builder, neigen: np.ndarray, sl: StateList,
-                   evals_by_sector: Dict[int, np.ndarray],
+def _dense_buckets(cfg: EDConfig, table: SectorTable,
+                   items: List[Tuple[int, int]], dense_builders: Sequence,
+                   neigen: np.ndarray, sls: List[StateList],
+                   evals_by_sector: List[Dict[int, np.ndarray]],
                    device: torch.device) -> None:
-    buckets: Dict[int, List[int]] = {}
-    for i in items:
-        buckets.setdefault(_pad_pow2_bucket(table.get_dim(i)), []).append(i)
+    """Diagonalize the (site, sector) pairs of ``items``: every site's
+    sectors join the same power-of-two buckets, one batched eigh each."""
+    buckets: Dict[int, List[Tuple[int, int]]] = {}
+    for s, i in items:
+        buckets.setdefault(_pad_pow2_bucket(table.get_dim(i)),
+                           []).append((s, i))
     for bsize, bitems in sorted(buckets.items()):
+        if cfg.ed_verbose >= 4:
+            print(f"[edipack_tpu_torch:DEBUG] dense bucket pad={bsize}: "
+                  f"{len(bitems)} (site, sector) items {bitems[:12]}"
+                  f"{'...' if len(bitems) > 12 else ''}")
         # chunk large batches to bound memory
         max_batch = max(1, (1 << 22) // (bsize * bsize))
         for lo in range(0, len(bitems), max_batch):
             chunk = bitems[lo:lo + max_batch]
-            hs = [dense_builder(table.sector(i)) for i in chunk]
+            hs = [dense_builders[s](table.sector(i)) for s, i in chunk]
             cplx = any(np.iscomplexobj(h) for h in hs)
             mats = np.zeros((len(chunk), bsize, bsize),
                             complex if cplx else float)
             dims = []
-            for bi, (i, h) in enumerate(zip(chunk, hs)):
+            for bi, ((s, i), h) in enumerate(zip(chunk, hs)):
                 d = h.shape[0]
                 if sanitize_enabled(cfg) and not np.allclose(
                         h, h.conj().T, atol=1e-10 * (np.abs(h).max() + 1)):
                     raise AssertionError(
-                        f"[ed_sanitize] sector {i}: dense H is not "
-                        f"Hermitian — term builder bug")
+                        f"[ed_sanitize] sector {i} (site {s}): dense H is "
+                        f"not Hermitian — term builder bug")
                 dims.append(d)
                 mats[bi, :d, :d] = h
-                # push padding levels far above the physical spectrum
+                # push padding levels far above this matrix's spectrum
                 pad = np.abs(h).sum() + 1.0
                 mats[bi, d:, d:] = np.eye(bsize - d) * pad if bsize > d else 0.0
             evals, evecs = batched_eigh(torch.as_tensor(mats, device=device))
             evals = evals.cpu().numpy()
-            for bi, i in enumerate(chunk):
+            for bi, (s, i) in enumerate(chunk):
                 d = dims[bi]
                 ev = evals[bi, :d]
-                evals_by_sector[i] = ev
+                evals_by_sector[s][i] = ev
                 # keep at least the sector's full near-degenerate ground
                 # multiplet so the T=0 trim can't miss degeneracies
                 n_deg = int(np.sum(ev - ev[0] <= cfg.gs_threshold))
-                keep = min(d, max(neigen[i], n_deg, 1))
+                keep = min(d, max(neigen[s, i], n_deg, 1))
                 for j in range(keep):
-                    sl.add(EigenState(float(ev[j]), i, evecs[bi, :d, j]))
+                    sls[s].add(EigenState(float(ev[j]), i, evecs[bi, :d, j]))
 
 
 def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
@@ -336,6 +346,87 @@ def _finish(cfg: EDConfig, table: SectorTable, sl: StateList,
                       sector_histogram=counts, lanczos_stats=lanczos_stats)
 
 
+def diagonalize_sites(cfg: EDConfig, table: SectorTable,
+                      matvec_builders: Sequence[Callable[[Sector], object]],
+                      dense_builders: Sequence[Callable[[Sector], np.ndarray]],
+                      device: torch.device,
+                      neigen_overrides: Optional[Sequence] = None,
+                      sector_masks: Optional[Sequence] = None
+                      ) -> List[DiagResult]:
+    """Sweep every (site, sector) pair; one DiagResult per site.
+
+    The sites share the sector structure (``table``) and the solver knobs
+    of ``cfg``; each site's physics (Hloc, bath, U) lives in its builders.
+    The dense sectors of every site share the power-of-two buckets, so a
+    bucket is one batched eigh over sites and sectors together (the
+    reference round-robins sites over MPI ranks, E2I_MAIN.f90:253-296).
+    The Lanczos sectors run one (site, sector) at a time through the
+    site's own operator; their start vectors depend on the sector only
+    (ops.lanczos.START_SEED), so site s of a sweep equals a lone solve of
+    site s. The nonsu2 twin re-solve, the twin reconstruction and the trim
+    run per site.
+
+    ``matvec_builders[s](sec)``: device matvec callable with .dim/.device
+    ``dense_builders[s](sec)``: dense sector H (dim <= lanc_dim_threshold)
+    """
+    nsites = len(dense_builders)
+    nsec = len(table)
+    neigen = np.full((nsites, nsec), cfg.lanc_nstates_sector, dtype=int)
+    if neigen_overrides is not None:
+        for s, ov in enumerate(neigen_overrides):
+            if ov is not None:
+                neigen[s, :] = np.asarray(ov, int)
+    twin_masks = []
+    for s in range(nsites):
+        m = table.twin_mask()
+        if sector_masks is not None and sector_masks[s] is not None:
+            m = m & np.asarray(sector_masks[s], bool)
+        twin_masks.append(m)
+    sls = [StateList(beta=cfg.beta) for _ in range(nsites)]
+    evals_by_sector: List[Dict[int, np.ndarray]] = [{} for _ in range(nsites)]
+
+    dense_items, lanc_items = [], []
+    for s in range(nsites):
+        for i in range(nsec):
+            dim = table.get_dim(i)
+            if not twin_masks[s][i] or dim == 0:
+                continue
+            (dense_items if dim <= cfg.lanc_dim_threshold
+             else lanc_items).append((s, i))
+
+    _dense_buckets(cfg, table, dense_items, dense_builders, neigen, sls,
+                   evals_by_sector, device)
+
+    sector_times: List[Tuple] = []
+    lanczos_stats: List[Dict[int, Tuple[int, int, int]]] = [
+        {} for _ in range(nsites)]
+    for s, i in lanc_items:
+        t0 = time.perf_counter()
+        lanczos_stats[s][i] = _lanczos_solve_sector(
+            cfg, table, i, matvec_builders[s], neigen[s, i], sls[s],
+            evals_by_sector[s])
+        sector_times.append((s, i, table.get_dim(i),
+                             len(evals_by_sector[s][i]),
+                             time.perf_counter() - t0))
+    if cfg.ed_verbose >= 3 and sector_times:
+        print("[edipack_tpu_torch] per-sector Lanczos timings:")
+        for s, i, d, nv, dt in sorted(sector_times,
+                                      key=lambda t: -t[4])[:20]:
+            site = f"site {s} " if nsites > 1 else ""
+            print(f"  {site}sector {i:4d} dim {d:>10d} nev {nv}  "
+                  f"{dt:8.3f}s")
+    if cfg.ed_twin and cfg.ed_mode == "nonsu2":
+        for s in range(nsites):
+            _resolve_nonsu2_twins(
+                cfg, table, sls[s], evals_by_sector[s], matvec_builders[s],
+                dense_builders[s], neigen[s], twin_masks[s],
+                sector_masks[s] if sector_masks is not None else None,
+                device, lanczos_stats[s])
+    return [_finish(cfg, table, sls[s], evals_by_sector[s], neigen[s],
+                    twin_masks[s], nsec, lanczos_stats[s])
+            for s in range(nsites)]
+
+
 def diagonalize(cfg: EDConfig, table: SectorTable,
                 matvec_builder: Callable[[Sector], object],
                 dense_builder: Callable[[Sector], np.ndarray],
@@ -344,47 +435,12 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
                 sector_mask: Optional[np.ndarray] = None) -> DiagResult:
     """Sweep every sector of ``table`` (T = 0 or, with ed_finite_temp, the
     thermal window), or those of ``sector_mask`` (the ed_sectors restart,
-    io.read_sectors_restart).
+    io.read_sectors_restart): the one-site specialization of
+    :func:`diagonalize_sites`.
 
     ``matvec_builder(sec)``: device matvec callable with .dim/.device
     ``dense_builder(sec)``: dense sector H (dim <= lanc_dim_threshold)
     """
-    nsec = len(table)
-    neigen = np.full(nsec, cfg.lanc_nstates_sector, dtype=int)
-    if neigen_override is not None:
-        neigen[:] = np.asarray(neigen_override, int)
-    twin_mask = table.twin_mask()
-    if sector_mask is not None:
-        twin_mask = twin_mask & np.asarray(sector_mask, bool)
-    sl = StateList(beta=cfg.beta)
-    evals_by_sector: Dict[int, np.ndarray] = {}
-
-    dense_items, lanc_items = [], []
-    for i in range(nsec):
-        dim = table.get_dim(i)
-        if not twin_mask[i] or dim == 0:
-            continue
-        (dense_items if dim <= cfg.lanc_dim_threshold
-         else lanc_items).append(i)
-
-    _dense_buckets(cfg, table, dense_items, dense_builder, neigen, sl,
-                   evals_by_sector, device)
-
-    sector_times: List[Tuple] = []
-    lanczos_stats: Dict[int, Tuple[int, int, int]] = {}
-    for i in lanc_items:
-        t0 = time.perf_counter()
-        lanczos_stats[i] = _lanczos_solve_sector(
-            cfg, table, i, matvec_builder, neigen[i], sl, evals_by_sector)
-        sector_times.append((i, table.get_dim(i), len(evals_by_sector[i]),
-                             time.perf_counter() - t0))
-    if cfg.ed_verbose >= 3 and sector_times:
-        print("[edipack_tpu_torch] per-sector Lanczos timings:")
-        for i, d, nv, dt in sorted(sector_times, key=lambda t: -t[3])[:20]:
-            print(f"  sector {i:4d} dim {d:>10d} nev {nv}  {dt:8.3f}s")
-    if cfg.ed_twin and cfg.ed_mode == "nonsu2":
-        _resolve_nonsu2_twins(cfg, table, sl, evals_by_sector,
-                              matvec_builder, dense_builder, neigen,
-                              twin_mask, sector_mask, device, lanczos_stats)
-    return _finish(cfg, table, sl, evals_by_sector, neigen, twin_mask, nsec,
-                   lanczos_stats)
+    return diagonalize_sites(cfg, table, [matvec_builder], [dense_builder],
+                             device, neigen_overrides=[neigen_override],
+                             sector_masks=[sector_mask])[0]

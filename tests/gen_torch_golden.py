@@ -5,6 +5,7 @@ on the card (chip_smoke.py) and in the slow CPU tests
     JAX_PLATFORMS=cpu python tests/gen_torch_golden.py [float64] [float32] [dmft]
     JAX_PLATFORMS=cpu python tests/gen_torch_golden.py extras [PART ...]
     JAX_PLATFORMS=cpu python tests/gen_torch_golden.py joint
+    JAX_PLATFORMS=cpu python tests/gen_torch_golden.py ineq
 
 Runs the JAX package's ed_solve on the CPU at norb=2, nbath=4 with the
 two-orbital Kanamori parameters of bench.py and writes, for each precision
@@ -66,6 +67,19 @@ named (both by default):
   replica bath, and a superc solve with phonons; each through
   ``run_case`` (ed_* API, f64 JointMatvec on the CPU), with a χ² fit by
   L-BFGS-B of the superc and nonsu2 baths to (D/2)² (G, F) and (D/2)² G.
+
+* ineq: tests/data/torch_port_golden_ineq.json, inequivalent sites
+  through EDIneqSolver (four parts, each in a process of its own, three
+  run together, then the second iteration; about 20 min on an 8-core CPU,
+  most of it the n2b4 sites' Lanczos sectors): (1) three sites of CONFIG with the DMFT fit settings,
+  a staggered Hloc and per-site uloc_ii / ust_ii: a statics-only call
+  (flag_gf=False), a full call (e0, evals, dens, docc, energies, G and Σ
+  on NMATS frequencies), the L-BFGS-B fit of every site to (D/2)² G
+  (fit_gf), and the second iteration from the fitted baths; (2) two superc
+  sites (norb=2, nbath=2, bench.py config 3's couplings) through the
+  per-site loop: e0, dens, docc, φ, G and F; (3) the C drivers' case: two
+  sites of CONFIG with uniform U, default baths and the Hloc ±HSTAG/2 on
+  every orbital, G on the default grid of ``lmats`` = NMATS points.
 
 Not collected by pytest (the file name does not start with ``test_``).
 """
@@ -410,7 +424,171 @@ def write_joint_golden():
     print(f"wrote {OUT_JOINT}: {os.path.getsize(OUT_JOINT)} bytes")
 
 
+OUT_INEQ = os.path.join(HERE, "data", "torch_port_golden_ineq.json")
+INEQ = dict(CONFIG, **DMFT)
+INEQ_NSITES = 3
+INEQ_HLOC = [0.1, 0.0, -0.1]             # site s: INEQ_HLOC[s] * 1
+INEQ_ULOC = [[2.0, 2.0], [2.5, 2.5], [1.5, 1.5]]
+INEQ_UST = [1.2, 1.5, 0.9]
+INEQ_SUPERC = dict(norb=2, nbath=2, nspin=1, ed_mode="superc",
+                   uloc=[-2.0, -2.0], ust=-1.0, jh=0.25, jx=0.25, jp=0.25,
+                   deltasc=0.02)
+INEQ_SUPERC_ULOC = [[-2.0, -2.0], [-1.5, -1.5]]
+INEQ_CAPI = dict(CONFIG, lmats=NMATS)
+INEQ_CAPI_NLAT, INEQ_CAPI_HSTAG = 2, 0.2
+
+
+def _site_hloc(norb, values):
+    return np.stack([np.eye(norb)[None, None] * v for v in values])
+
+
+def _ineq_records(solver, z, full=True):
+    out = []
+    g = solver.get_gimp(z) if full else None
+    sig = solver.get_sigma(z) if full else None
+    for n, s in enumerate(solver.solvers):
+        res = s.result
+        rec = dict(e0=float(res.e0), dens=np.asarray(res.dens).tolist(),
+                   docc=np.asarray(res.docc).tolist(),
+                   energies=np.asarray(res.energies).tolist())
+        if full:
+            rec.update(evals=np.asarray(res.evals).tolist(),
+                       gimp=pairs(g[n]), sigma=pairs(sig[n]))
+        out.append(rec)
+    return out
+
+
+def _ineq_sites(cfg):
+    from edipack_tpu.ineq import EDIneqSolver
+    solver = EDIneqSolver(INEQ_NSITES, cfg)
+    baths = solver.init_solver()
+    solver.set_hloc(_site_hloc(cfg.norb, INEQ_HLOC))
+    return solver, baths
+
+
+def ineq_part(part, path, *inputs):
+    """One part of the ineq golden, written to ``path`` as JSON. Each part
+    runs in a process of its own, and drops JAX's compiled executables
+    between its sweeps: the executables of several n2b4 sweeps in one
+    process exhaust the process's memory maps (LLVM "Cannot allocate
+    memory")."""
+    import gc
+    from edipack_tpu.config import set_config
+    from edipack_tpu.ineq import EDIneqSolver
+    over = dict(uloc_ii=np.array(INEQ_ULOC), ust_ii=np.array(INEQ_UST))
+    if part in ("loop1", "loop2"):
+        cfg = set_config(default_config(**INEQ, ed_verbose=0))
+        z = 1j * np.pi / cfg.beta * (2 * np.arange(NMATS) + 1)
+        solver, baths = _ineq_sites(cfg)
+    if part == "loop1":
+        # the statics-only call first: its adapted neigen_sector seeds the
+        # full call, as in one EDIneqSolver's loop
+        solver.solve(baths, flag_gf=False, **over)
+        out = dict(bath=baths.tolist(),
+                   statics=_ineq_records(solver, z, full=False))
+        jax.clear_caches()
+        gc.collect()
+        solver.solve(baths, **over)
+        out.update(loop1=_ineq_records(solver, z),
+                   neigen=[s.result.neigen_sector.tolist()
+                           for s in solver.solvers])
+        delta = (WBAND / 2.0) ** 2 * solver.get_gimp()
+        jax.clear_caches()
+        gc.collect()
+        out["fit"] = solver.fit_gf(delta, baths).tolist()
+    elif part == "loop2":
+        with open(inputs[0]) as fh:
+            first = json.load(fh)
+        fit = np.asarray(first["fit"])
+        # the second iteration of the same solvers, as in one
+        # EDIneqSolver's loop: the first's overrides stay in each site's
+        # config, and its adapted neigen_sector seeds the sweep
+        for s, u, ust, nev in zip(solver.solvers, INEQ_ULOC, INEQ_UST,
+                                  first["neigen"]):
+            s.cfg = s.cfg.replace(uloc=list(u), ust=ust)
+            s.neigen_sector_override = np.asarray(nev, int)
+        solver.solve(fit)
+        out = dict(loop2=_ineq_records(solver, z))
+    elif part == "superc":
+        cfg = set_config(default_config(**INEQ_SUPERC, ed_verbose=0))
+        z = 1j * np.pi / cfg.beta * (2 * np.arange(NMATS) + 1)
+        solver = EDIneqSolver(2, cfg)
+        baths = solver.init_solver()
+        solver.set_hloc(_site_hloc(cfg.norb, [0.1, -0.1]))
+        solver.solve(baths, uloc_ii=np.array(INEQ_SUPERC_ULOC))
+        g, f = solver.get_gimp(z), solver.get_gimp(z, typ="a")
+        out = dict(sites=[dict(e0=float(s.result.e0),
+                               dens=np.asarray(s.result.dens).tolist(),
+                               docc=np.asarray(s.result.docc).tolist(),
+                               phi=np.asarray(s.result.phisc).tolist(),
+                               gimp=pairs(g[n]), impf=pairs(f[n]))
+                          for n, s in enumerate(solver.solvers)])
+    elif part == "capi":
+        cfg = set_config(default_config(**INEQ_CAPI, ed_verbose=0))
+        nlat, h = INEQ_CAPI_NLAT, INEQ_CAPI_HSTAG
+        solver = EDIneqSolver(nlat, cfg)
+        baths = solver.init_solver()
+        solver.set_hloc(_site_hloc(cfg.norb, [0.5 * (2 * s - nlat + 1) * h
+                                              for s in range(nlat)]))
+        solver.solve(baths)
+        out = dict(dens=solver.get_dens().tolist(),
+                   docc=solver.get_docc().tolist(),
+                   eimp=solver.get_eimp().tolist(),
+                   gimp=pairs(solver.get_gimp()))
+    print(f"ineq {part}: done")
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+
+
+def write_ineq_golden():
+    """The parts loop1 (the statics-only call, the full call and the fit),
+    superc and capi run together, then loop2 from loop1's fitted baths."""
+    import subprocess
+    import tempfile
+
+    def run(parts, paths, extra=()):
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "ineq_part", p, paths[p], *extra])
+                 for p in parts]
+        if any(proc.wait() != 0 for proc in procs):
+            raise SystemExit("ineq golden: a part failed")
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {p: os.path.join(tmp, p + ".json") for p in
+                 ("loop1", "loop2", "superc", "capi")}
+        run(("loop1", "superc", "capi"), paths)
+        run(("loop2",), paths, (paths["loop1"],))
+        for p, path in paths.items():
+            with open(path) as fh:
+                res[p] = json.load(fh)
+    commit = subprocess.run(["git", "log", "-1", "--format=%h", "--",
+                             "edipack_tpu"], capture_output=True, text=True,
+                            cwd=os.path.dirname(HERE)).stdout.strip()
+    out = dict(source=f"edipack_tpu (last commit {commit}) EDIneqSolver on "
+                      f"the CPU (f64 KronMatvec, exact GF; fits by "
+                      f"L-BFGS-B, no mixing)",
+               config=INEQ, nmats=NMATS, wband=WBAND, hloc=INEQ_HLOC,
+               uloc_ii=INEQ_ULOC, ust_ii=INEQ_UST,
+               **{k: res["loop1"][k] for k in ("bath", "statics", "loop1",
+                                               "fit")},
+               **res["loop2"],
+               superc=dict(config=INEQ_SUPERC, hloc=[0.1, -0.1],
+                           uloc_ii=INEQ_SUPERC_ULOC, **res["superc"]),
+               capi=dict(config=INEQ_CAPI, nlat=INEQ_CAPI_NLAT,
+                         hstag=INEQ_CAPI_HSTAG, **res["capi"]))
+    with open(OUT_INEQ, "w") as fh:
+        json.dump(out, fh)
+    print(f"wrote {OUT_INEQ}: {os.path.getsize(OUT_INEQ)} bytes")
+
+
 def main(modes):
+    if modes[:1] == ["ineq"]:
+        write_ineq_golden()
+        return
+    if modes[:1] == ["ineq_part"]:
+        ineq_part(*modes[1:])
+        return
     if modes[:1] == ["joint"]:
         write_joint_golden()
         return
