@@ -35,6 +35,10 @@ non-zero on any fault):
           within E0_F32_RTOL), and its G (on the BETA_GRID frequencies),
           densities, double occupancies and energies against the f64
           solve's at TOL_F32_EXACT
+  trace   config 1 (norb=1, nbath=4) solved twice, the second time with
+          ed_profile_dir under build/: one torch.profiler Chrome trace
+          written, holding CUDA kernel events, and the traced solve's e0,
+          G, dens and docc equal to the untraced one's (TRACE_TOL)
   dmft    the DMFT loop on the card: (a) two Bethe-lattice iterations
           (solve, Δ = (D/2)² G, ed_chi2_fitgf) at norb=2, nbath=4 through
           B1, held to tests/data/torch_port_golden_dmft_n2b4.json; (b) the
@@ -82,7 +86,11 @@ non-zero on any fault):
           and G held to the golden at TOL, no traceback on stderr, B1
           launches (from EDIPACK_TPU_TORCH_LAUNCH_LOG) > 0; then a bad
           EDIPACK_TPU_TORCH_DEVICE must make edtpu_init fail with the
-          allowlist's message
+          allowlist's message; beside them the C example
+          (examples/c/hm_bethe.c, built by examples/c/build.py) runs two
+          DMFT loops on the card: its printed numbers finite, and loop 1's
+          density equal to the Python path's (ed_solve of the same
+          problem in this process) at its printed precision
   joint   the superc / nonsu2 modes in complex128 (no kernel of the four
           is on this path: the JAX joint operators are plain jnp, the
           port's are PyTorch): (a) the joint golden
@@ -94,8 +102,12 @@ non-zero on any fault):
           direct: the two routes' e0, G, F, φ, dens, docc against each
           other, every kept state's residual through the other route's
           operator, complete ground multiplets, and the normal GF's
-          weights summing to 1 per channel; (d) the reference-scale superc
-          Sz=0 sector at nbath=5 (2,704,156 states): the ELL, the
+          weights summing to 1 per channel; every GF chain into one target
+          sector runs in one batched chain, and config 4's G on the ELL
+          route is rebuilt from the same solve's states with the chains
+          one at a time (greens.BATCH_CHAINS off) and held to the
+          batched one at GF_SINGLE_TOL, both timed; (d) the
+          reference-scale superc Sz=0 sector at nbath=5 (2,704,156 states): the ELL, the
           blocked-Kron (one gather group a block pair, and in groups of
           <= 6 terms) and a cuSPARSE complex128 CSR product held to each
           other and timed as the kernels are, with their byte bounds, then
@@ -692,6 +704,51 @@ def _solve_once(label: str, cfg, bath):
     if not 0.0 < dens.sum() < 4.0:
         fail(f"{label}: unphysical density {dens}")
     return res, counts, wall
+
+
+TRACE_CONFIG = dict(norb=1, nbath=4, nspin=1, uloc=[2.0], xmu=1.0)
+TRACE_TOL = 1e-12         # the traced solve against the untraced one
+
+
+def phase_trace(report: dict) -> None:
+    """Config 1 solved without and with ed_profile_dir: the trace file, its
+    CUDA kernel events, and the same results."""
+    import shutil
+    import edipack_tpu_torch as ed
+    out = os.path.join(ROOT, "build", "chip_smoke_trace")
+    shutil.rmtree(out, ignore_errors=True)
+    got = {}
+    for label, kw in (("untraced", {}), ("traced", dict(ed_profile_dir=out))):
+        cfg = ed.default_config(**TRACE_CONFIG, ed_verbose=0, **kw)
+        ed.set_config(cfg)
+        bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+        ed.ed_set_hloc(np.zeros((1, 1, 1, 1)))
+        t0 = time.perf_counter()
+        res = ed.ed_solve(bath)
+        wall = time.perf_counter() - t0
+        got[label] = dict(e0=np.asarray(res.e0), gimp=ed.ed_get_gimp(
+            _z(cfg.beta)), dens=np.asarray(ed.ed_get_dens()),
+            docc=np.asarray(ed.ed_get_docc()))
+        ed.ed_finalize_solver()
+        print(f"[trace] config 1 {label}: wall {wall:.2f} s (the traced "
+              f"one includes writing the trace), e0 {res.e0:.12f}")
+    files = os.listdir(out) if os.path.isdir(out) else []
+    if len(files) != 1:
+        fail(f"trace: {len(files)} files under {out}, not one")
+    path = os.path.join(out, files[0])
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    dev = max(float(np.max(np.abs(got["traced"][k] - got["untraced"][k])))
+              for k in got["traced"])
+    print(f"[trace] {os.path.relpath(path, ROOT)}: {os.path.getsize(path)} "
+          f"bytes, {len(events)} events, {len(kernels)} CUDA kernel events"
+          f" ({len({e['name'] for e in kernels})} kernels); traced vs "
+          f"untraced {dev:.3e} (limit {TRACE_TOL})")
+    if not kernels:
+        fail("trace: no CUDA kernel event in the trace")
+    if not dev <= TRACE_TOL:
+        fail(f"trace: the traced solve differs by {dev:.3e}")
 
 
 def _config2(precision: str):
@@ -1551,13 +1608,51 @@ def phase_ineq(report: dict) -> None:
 
 CAPI_DRIVERS = ("edtpu_lattice", "compat_lattice")
 CAPI_BAD_DEVICE = "cpu'); import os; ('"
+# the C example's problem (examples/c/hm_bethe.c), for the Python path
+HM_BETHE = dict(norb=1, nbath=5, nspin=1, beta=100.0, lmats=512, lfit=512,
+                uloc=[2.0], xmu=0.0, cg_scheme="delta", cg_niter=600)
+HM_BETHE_LOOPS = 2
 
 
-def _capi_run(exe: str, args, env: dict) -> tuple:
+def _capi_run(exe: str, args, env: dict, cwd=None) -> tuple:
     t0 = time.perf_counter()
     out = subprocess.run([exe, *map(str, args)], capture_output=True,
-                         text=True, env=env, timeout=600)
+                         text=True, env=env, timeout=600, cwd=cwd)
     return out, time.perf_counter() - t0
+
+
+def _hm_bethe_python() -> float:
+    """Loop 1's density of the C example's problem through ed_solve."""
+    import edipack_tpu_torch as ed
+    cfg = ed.default_config(**HM_BETHE, ed_verbose=0)
+    ed.set_config(cfg)
+    bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
+    ed.ed_set_hloc(np.zeros((1, 1, 1, 1)))
+    ed.ed_solve(bath)
+    dens = float(ed.ed_get_dens()[0])
+    ed.ed_finalize_solver()
+    return dens
+
+
+def _check_hm_bethe(out, wall: float, log: str, dens_py: float) -> None:
+    import re
+    if out.returncode != 0 or "Traceback" in out.stderr:
+        fail(f"capi hm_bethe: rc {out.returncode}\n{out.stdout[-2000:]}"
+             f"\n{out.stderr[-4000:]}")
+    with open(log) as fh:
+        launched = json.load(fh)
+    loops = re.findall(r"loop +(\d+) +err (\S+) +dens (\S+)", out.stdout)
+    print(f"[capi] hm_bethe (the C example, {HM_BETHE_LOOPS} loops): wall "
+          f"{wall:.2f} s, loops {loops}, kernel launches {launched}; the "
+          f"Python path's loop 1 density {dens_py:.6f}")
+    if [int(n) for n, _, _ in loops] != list(range(1, HM_BETHE_LOOPS + 1)) \
+            or not all(np.isfinite(float(x)) for _, e, d in loops
+                       for x in (e, d)):
+        fail(f"capi hm_bethe: loops {loops}")
+    # equal at the printed precision (%.6f): within half its last digit
+    if not abs(float(loops[0][2]) - dens_py) <= 5e-7:
+        fail(f"capi hm_bethe: loop 1 density {loops[0][2]}, the Python "
+             f"path's {dens_py:.9f}")
 
 
 def phase_capi(report: dict) -> None:
@@ -1593,7 +1688,10 @@ def phase_capi(report: dict) -> None:
              *build.link_flags(lib)], capture_output=True, text=True)
         if out.returncode != 0:
             fail(f"capi: driver {name} does not build:\n{out.stderr}")
-    print(f"[capi] drivers built in {time.perf_counter() - t0:.2f} s")
+    from edipack_tpu_torch.examples.c import build as example
+    exes["hm_bethe"] = str(example.build())
+    print(f"[capi] drivers and the C example built in "
+          f"{time.perf_counter() - t0:.2f} s")
     config = dict(gold["config"], ed_fused_matvec="always", ed_verbose=0)
     path_in = os.path.join(work, "inputED.in")
     with open(path_in, "w") as fh:
@@ -1608,23 +1706,29 @@ def phase_capi(report: dict) -> None:
     # its own on the one card (their solves are mostly host work)
     from concurrent.futures import ThreadPoolExecutor
     logs = {name: os.path.join(work, name + ".launches.json")
-            for name in CAPI_DRIVERS}
+            for name in (*CAPI_DRIVERS, "hm_bethe")}
     env = dict(os.environ, PYTHONPATH=ROOT, EDIPACK_TPU_TORCH_DEVICE="cuda")
     for log in logs.values():
         if os.path.exists(log):
             os.remove(log)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(CAPI_DRIVERS) + 1) as pool:
+    with ThreadPoolExecutor(len(CAPI_DRIVERS) + 2) as pool:
         runs = {name: pool.submit(_capi_run, exes[name], args[name], dict(
             env, EDIPACK_TPU_TORCH_LAUNCH_LOG=logs[name]))
                 for name in CAPI_DRIVERS}
         bad = pool.submit(_capi_run, exes["edtpu_lattice"],
                           args["edtpu_lattice"],
                           dict(env, EDIPACK_TPU_TORCH_DEVICE=CAPI_BAD_DEVICE))
+        hm = pool.submit(_capi_run, exes["hm_bethe"], [HM_BETHE_LOOPS],
+                         dict(env, EDIPACK_TPU_TORCH_LAUNCH_LOG=logs[
+                             "hm_bethe"]), work)
+        dens_py = _hm_bethe_python()
         runs = {name: f.result() for name, f in runs.items()}
         bad = bad.result()
-    print(f"[capi] the two drivers and the bad-device run together: "
-          f"{time.perf_counter() - t0:.2f} s")
+        hm = hm.result()
+    print(f"[capi] the two drivers, the bad-device run and the C example "
+          f"together: {time.perf_counter() - t0:.2f} s")
+    _check_hm_bethe(*hm, logs["hm_bethe"], dens_py)
     total = 0
     for name in CAPI_DRIVERS:
         out, wall = runs[name]
@@ -1684,23 +1788,11 @@ TOL_CROSS = dict(e0=1e-10, gimp=1e-8, impf=1e-8, phi=1e-8, dens=1e-8,
                  docc=1e-8)
 RESID_RTOL = 1e-8
 JOINT_RTOL = 1e-12        # the 2.7M-state operators against each other
-CONFIG3 = dict(norb=2, nbath=4, nspin=1, ed_mode="superc", uloc=[-2.0, -2.0],
-               ust=-1.0, jh=0.25, jx=0.25, jp=0.25, deltasc=0.02)
-CONFIG4 = dict(norb=2, nbath=3, nspin=2, ed_mode="nonsu2", uloc=[2.0, 2.0],
-               ust=1.2, jh=0.25, spin_field_x=[0.1, 0.1])
-# levels asked of each sector in (b) and (c): the two orbitals are alike, so
-# the ground multiplets are degenerate; every sector that holds kept states
-# must also have found a level above the T=0 window (a complete multiplet:
-# G of an incomplete one depends on which members Lanczos found)
-JOINT_NEV = 6
-
-
-def _spin_mixing_hloc(norb: int) -> np.ndarray:
-    """bench.py's SOC-like Hloc of config 4: ±0.1i between the spins."""
-    h = np.zeros((2, 2, norb, norb), complex)
-    h[0, 1] = 0.1j * np.eye(norb)
-    h[1, 0] = -0.1j * np.eye(norb)
-    return h
+# config 4's G from its chains run together against one at a time: only
+# the order of sums differs (a CPU run of config 4 cut to nbath=2: 4.4e-14)
+GF_SINGLE_TOL = 1e-10
+# configs 3 and 4 (CONFIG3, CONFIG4, their levels a sector JOINT_NEV and
+# config 4's spin-mixing Hloc) are edipack_tpu_torch/profile_solve.py's
 
 
 def _joint_golden(report: dict) -> None:
@@ -1732,12 +1824,14 @@ def _joint_solve(label: str, config: dict, hloc, route: dict):
     summary printed."""
     import torch
     import edipack_tpu_torch as ed
+    from edipack_tpu_torch.profile_solve import JOINT_NEV
     cfg = ed.default_config(**config, ed_verbose=0,
                             lanc_nstates_sector=JOINT_NEV, **route)
     ed.set_config(cfg)
     bath = ed.ed_init_solver(cfg=cfg, device=DEVICE)
     ed.ed_set_hloc(hloc)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # the reserved peak is then this solve's
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = ed.ed_solve(bath)
@@ -1750,12 +1844,15 @@ def _joint_solve(label: str, config: dict, hloc, route: dict):
     if cfg.ed_mode == "superc":
         out.update(impf=ed.ed_build_impf(z), phi=np.asarray(ed.ed_get_phi()))
     peak = torch.cuda.max_memory_allocated() / 2**30
+    held = torch.cuda.max_memory_reserved() / 2**30
     big = max(res.table.get_dim(i) for i in range(len(res.table)))
     print(f"[joint] {label}: wall {wall:.2f} s, phases "
           + ", ".join(f"{k} {v:.2f} s" for k, v in res.timings.items())
           + f"; e0 {res.e0:.12f}, kept {len(res.evals)}, matvecs "
           f"{res.n_matvecs}, largest sector {big}, Lanczos sectors "
-          f"{len(res.diag.lanczos_stats)}, peak device memory {peak:.2f} GiB")
+          f"{len(res.diag.lanczos_stats)}, peak device memory {peak:.2f} GiB"
+          f" allocated (its CUDA graphs' pools included), {held:.2f} GiB "
+          f"reserved")
     kept: dict = {}
     for st in res.diag.state_list:
         kept.setdefault(st.sector, []).append(st.energy - res.e0)
@@ -1832,6 +1929,8 @@ def _cross_check(label: str, a: dict, b: dict, route_b: dict) -> None:
 def _joint_configs(report: dict) -> None:
     """(b) config 3 through ELL and blocked-Kron; (c) config 4 through ELL
     and direct."""
+    from edipack_tpu_torch.profile_solve import (CONFIG3, CONFIG4,
+                                                 spin_mixing_hloc)
     kron = dict(ed_joint_kron="always")
     direct = dict(ed_sparse_h=False)
     c3 = dict(ell=_joint_solve("config 3 superc, ELL", CONFIG3,
@@ -1841,17 +1940,58 @@ def _joint_configs(report: dict) -> None:
     _cross_check("config 3", c3["ell"], c3["kron"], kron)
     _cross_check("config 3 (Kron states)", c3["kron"], c3["ell"],
                  dict(ed_joint_kron="auto"))
-    h4 = _spin_mixing_hloc(2)
+    h4 = spin_mixing_hloc(2)
     c4 = dict(ell=_joint_solve("config 4 nonsu2, ELL", CONFIG4, h4, {}),
               direct=_joint_solve("config 4 nonsu2, direct", CONFIG4, h4,
                                   direct))
     _cross_check("config 4", c4["ell"], c4["direct"], direct)
+    _gf_one_at_a_time("config 4, ELL", c4["ell"]["res"])
     _cross_check("config 4 (direct states)", c4["direct"], c4["ell"],
                  dict(ed_sparse_h=True))
     report["config3"] = {k: dict(wall_s=v["wall"], **v["res"].timings)
                          for k, v in c3.items()}
     report["config4"] = {k: dict(wall_s=v["wall"], **v["res"].timings)
                          for k, v in c4.items()}
+
+
+def _gf_one_at_a_time(label: str, res) -> None:
+    """The GF of ``res``'s kept states rebuilt on fresh operators of its
+    route: batched (building the operators), then one chain at a time; the
+    two held to each other at GF_SINGLE_TOL and timed."""
+    from unittest import mock
+    import torch
+    from edipack_tpu_torch.solver import core_joint as cj, greens
+    b = cj.joint_builders(res.cfg, res.table, res.hloc, res.um, res.bath,
+                          torch.device(DEVICE), res.hloc_anomalous)
+    build = cj.build_gf_superc if res.cfg.ed_mode == "superc" \
+        else cj.build_gf_nonsu2
+    times, gfs = {}, {}
+    for kind in ("batched", "single"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(greens, "BATCH_CHAINS", kind == "batched"):
+            gfs[kind] = build(res.cfg, res.table, res.diag.state_list,
+                              b.matvec_builder, b.dense_eig_cache)
+        torch.cuda.synchronize()
+        times[kind] = time.perf_counter() - t0
+    z = _z(res.cfg.beta)
+    keys = sorted(res.gf.channels, key=str)
+    if sorted(gfs["single"].channels, key=str) != keys:
+        fail(f"{label}: the single chains give other GF channels")
+    dev = max(float(np.max(np.abs(gfs["single"].eval(k, z)
+                                  - gfs["batched"].eval(k, z))))
+              for k in keys)
+    dev_solve = max(float(np.max(np.abs(res.gf.eval(k, z)
+                                        - gfs["batched"].eval(k, z))))
+                    for k in keys)
+    print(f"[joint]   {label}: GF of {len(keys)} channels rebuilt: batched "
+          f"{times['batched']:.2f} s (operators built; the solve's GF phase "
+          f"{res.timings['greens_functions']:.2f} s), one chain at a time "
+          f"{times['single']:.2f} s; single vs batched {dev:.3e} (limit "
+          f"{GF_SINGLE_TOL}), batched vs the solve's {dev_solve:.3e}")
+    if not (dev <= GF_SINGLE_TOL and dev_solve <= GF_SINGLE_TOL):
+        fail(f"{label}: G one chain at a time differs by {dev:.3e} "
+             f"(the solve's by {dev_solve:.3e})")
 
 
 def _big_sector(report: dict, mode: str, nbath: int = 5) -> None:
@@ -1866,6 +2006,8 @@ def _big_sector(report: dict, mode: str, nbath: int = 5) -> None:
     from edipack_tpu_torch.models.joint_kron import (BlockedTermAccumulator,
                                                      JointKronMatvec)
     from edipack_tpu_torch.ops.lanczos import eigsh_lowest
+    from edipack_tpu_torch.profile_solve import (CONFIG3, CONFIG4,
+                                                 spin_mixing_hloc)
     from edipack_tpu_torch.ops.matvec import JointMatvec
     from edipack_tpu_torch.sectors import SectorTable
     from edipack_tpu_torch.umatrix import build_umatrix
@@ -1876,7 +2018,7 @@ def _big_sector(report: dict, mode: str, nbath: int = 5) -> None:
     sec = table.by_qn(("sz", 0) if mode == "superc"
                       else ("nt", table.dims.ns))
     hloc = np.zeros((1, 1, 2, 2)) if mode == "superc" \
-        else _spin_mixing_hloc(2)
+        else spin_mixing_hloc(2)
     um, bath = build_umatrix(cfg), init_bath(cfg)
     t0 = time.perf_counter()
     op = build_joint_sector_op(cfg, sec, hloc, um, bath)
@@ -2125,7 +2267,7 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernel", phase_kernel),
                      ("golden", phase_golden), ("solve", phase_solve),
-                     ("dmft", phase_dmft), ("extras", phase_extras),
+                     ("trace", phase_trace), ("dmft", phase_dmft), ("extras", phase_extras),
                      ("ineq", phase_ineq), ("capi", phase_capi),
                      ("joint", phase_joint)):
         t0 = time.perf_counter()

@@ -190,7 +190,9 @@ class EDConfig:
     # Ntot sectors; "auto" and "never" the padded ELL (ed_sparse_h=False
     # the direct COO scatter-add instead)
     ed_joint_kron: str = "auto"
-    ed_profile_dir: str = ""        # accepted and inert
+    # a torch.profiler Chrome trace of each normal-mode solve into this
+    # directory ("": EDIPACK_TPU_TORCH_PROFILE_DIR, else no trace)
+    ed_profile_dir: str = ""
     ed_sanitize: bool = False       # debug-build analog of the reference's
     #                                 BUILD_TYPE=DEBUG/TESTING (-fcheck=all,
     #                                 -fbacktrace; reference CMakeLists):

@@ -10,13 +10,15 @@ f32, as the TPU package does (:func:`working_dtype`).
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
 DTYPE = torch.float64
 PRECISIONS = {"float64": torch.float64, "float32": torch.float32}
+PROFILE_ENV = "EDIPACK_TPU_TORCH_PROFILE_DIR"
 
 
 def working_dtype(cfg) -> torch.dtype:
@@ -45,12 +47,46 @@ def synchronize(device: torch.device) -> None:
 class PhaseTimer:
     """Wall-clock time per named phase (reference SF_TIMER around each
     phase). On CUDA each phase edge synchronizes the device, so a phase is
-    charged the device work it enqueued and not just its launch time."""
+    charged the device work it enqueued and not just its launch time.
 
-    def __init__(self, device: torch.device, verbose: int = 0):
+    ``trace_dir`` (else ``EDIPACK_TPU_TORCH_PROFILE_DIR``; edipack_tpu's
+    ``ed_profile_dir`` / ``EDIPACK_TPU_PROFILE_DIR``): entering the timer
+    as a context manager starts a ``torch.profiler`` trace (CPU activity,
+    and CUDA activity on a CUDA device), and leaving it writes the Chrome
+    trace ``solve_<time>_<pid>_<n>.pt.trace.json`` into that directory,
+    which is made if missing. Without a directory there is no profiler."""
+
+    _traces = 0          # traces written by this process (file names)
+
+    def __init__(self, device: torch.device, verbose: int = 0,
+                 trace_dir: Optional[str] = None):
         self.device = device
         self.timings: Dict[str, float] = {}
         self.verbose = verbose
+        self.trace_dir = trace_dir or os.environ.get(PROFILE_ENV) or None
+        self._prof = None
+
+    def __enter__(self) -> "PhaseTimer":
+        if self.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._prof is not None:
+            synchronize(self.device)
+            self._prof.__exit__(*exc)
+            os.makedirs(self.trace_dir, exist_ok=True)
+            PhaseTimer._traces += 1
+            self._prof.export_chrome_trace(os.path.join(
+                self.trace_dir, f"solve_{time.strftime('%Y%m%d_%H%M%S')}_"
+                f"{os.getpid()}_{PhaseTimer._traces}.pt.trace.json"))
+            self._prof = None
+        return False
 
     @contextlib.contextmanager
     def phase(self, name: str):

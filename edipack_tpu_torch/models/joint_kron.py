@@ -197,8 +197,12 @@ class JointKronMatvec:
     """Matvec over the blocked layout, in complex128 on ``device``.
 
     ``__call__(v)`` takes and returns the flat blocked vector
-    (dim_ph * dim_el); to_internal_flat / from_internal_flat convert at the
-    sorted-basis boundary."""
+    (dim_ph * dim_el), or a (B, dim_ph * dim_el) block of B of them
+    (``batched``: the GF chains of one target sector run through it
+    together); to_internal_flat / from_internal_flat convert one vector at
+    the sorted-basis boundary."""
+
+    batched = True
 
     def __init__(self, cfg: EDConfig, sec: Sector,
                  acc: BlockedTermAccumulator,
@@ -213,7 +217,9 @@ class JointKronMatvec:
         self.dtype = CDTYPE
         self.device = device
         self.n_calls = 0
-        self._graph = None              # the CUDA graph of apply() (__call__)
+        self._graphs = {}       # input shape -> CUDA graph of apply() and
+        #                         its static input and output (__call__)
+        self._pool = None       # the one memory pool of those graphs
         # terms of one (source, target) block pair gathered together, at
         # most (0: all of them). edipack_tpu takes 6 on the TPU; on the H100
         # one group a pair is 1.26-1.29x faster at the 2.7M-state sectors
@@ -329,26 +335,33 @@ class JointKronMatvec:
         return out
 
     def split_blocks(self, v: torch.Tensor) -> List[torch.Tensor]:
-        v2 = v.reshape(self.dim_ph, self.dim_el)
+        """Per-block (rows, ddw, dup) views; the rows are the phonon axis,
+        with a leading batch axis folded into it."""
+        v2 = v.reshape(-1, self.dim_el)
         return [v2[:, b.offset:b.offset + b.size]
-                .reshape(self.dim_ph, b.ddw, b.dup) for b in self.blocks]
+                .reshape(-1, b.ddw, b.dup) for b in self.blocks]
 
     def join_blocks(self, vb: List[torch.Tensor]) -> torch.Tensor:
-        return torch.cat([w.reshape(self.dim_ph, -1) for w in vb],
-                         dim=1).reshape(-1)
+        return torch.cat([w.reshape(w.shape[0], -1) for w in vb], dim=1)
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
-        """H·v on the blocked layout: a few small kernels a block and a
-        gather group."""
+        """H·v on the blocked layout, ``v`` (..., dim): a few small
+        kernels a block and a gather group."""
+        lead = v.shape[:-1]
         vb = self.split_blocks(v.to(self.dtype))
         out = self._apply_el(vb, self.el)
         if self.has_ph:
-            # phonon oscillator + e-ph: X ⊗ (eph_diag + eph hops)
+            # phonon oscillator + e-ph: X ⊗ (eph_diag + eph hops), over the
+            # phonon axis of each vector of the batch
             ev = self._apply_el(vb, self.eph)
             for i in range(len(out)):
-                out[i] += torch.einsum("pq,qdu->pdu", self.ph_mat, vb[i])
-                out[i] += torch.einsum("pq,qdu->pdu", self.ph_x, ev[i])
-        return self.join_blocks(out)
+                vi = vb[i].reshape(-1, self.dim_ph, *vb[i].shape[1:])
+                ei = ev[i].reshape(vi.shape)
+                out[i] += torch.einsum("pq,bqdu->bpdu", self.ph_mat,
+                                       vi).reshape(out[i].shape)
+                out[i] += torch.einsum("pq,bqdu->bpdu", self.ph_x,
+                                       ei).reshape(out[i].shape)
+        return self.join_blocks(out).reshape(*lead, self.dim)
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
@@ -356,25 +369,33 @@ class JointKronMatvec:
             return self.apply(v)
         # on the card the launches of apply(), not its work, set the time of
         # a small sector's matvec (config 3's blocked-Kron solve took 3x the
-        # ELL's): they are captured once as a CUDA graph on a static input
-        # buffer and replayed
-        if self._graph is None:
-            self._capture(v)
-        self._x.copy_(v)
-        self._graph.replay()
-        return self._y.clone()
+        # ELL's): they are captured once for each input shape (one vector,
+        # or a block of B) as a CUDA graph on a static input buffer and
+        # replayed. The graphs share one memory pool: each holds only its
+        # static input and output, and its temporaries are the others'
+        # (the replays run one after the other on one stream)
+        shape = tuple(v.shape)
+        if shape not in self._graphs:
+            self._graphs[shape] = self._capture(v)
+        graph, x, y = self._graphs[shape]
+        x.copy_(v)
+        graph.replay()
+        return y.clone()
 
-    def _capture(self, v: torch.Tensor) -> None:
-        self._x = v.to(self.dtype).clone()
+    def _capture(self, v: torch.Tensor):
+        x = v.to(self.dtype).clone()
         stream = torch.cuda.current_stream(v.device)
         side = torch.cuda.Stream(v.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            self.apply(self._x)          # warm-up, outside the capture
+            self.apply(x)                # warm-up, outside the capture
         stream.wait_stream(side)
-        self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
-            self._y = self.apply(self._x)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            y = self.apply(x)
+        return graph, x, y
 
     def to_dense(self) -> np.ndarray:
         """Dense matrix in the blocked layout (tests)."""

@@ -10,6 +10,8 @@ host):
   restart / locking / deflation loop of :func:`eigsh_lowest`.
 * :func:`lanczos_tridiag` — storage-free tridiagonalization for the
   Green's-function continued fractions (reference lanc_ngfiter moments).
+* :func:`lanczos_tridiag_batch` — B such chains against one operator, one
+  matvec call a step on the (B, dim) block.
 * :func:`batched_eigh` — dense eigh of padded small-sector buckets.
 
 The recurrence scalars stay on the device inside a sweep, so a sweep
@@ -115,6 +117,37 @@ def lanczos_tridiag(matvec: Callable, v0: torch.Tensor, m: int
         betas[i] = beta
         v_prev, v, beta_prev = v, v_next, beta
     return alphas, betas[:-1], norm0
+
+
+def lanczos_tridiag_batch(matvec: Callable, v0s: torch.Tensor, m: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B independent storage-free chains against the same operator
+    (edipack_tpu's vmap of :func:`lanczos_tridiag`): each step is one
+    ``matvec`` call on the (B, dim) block. A row that breaks down
+    (β = 0) goes on as the zero vector, as the single chain does, and
+    leaves the other rows as they are.
+
+    Returns (alphas (B, m), betas (B, m-1), norm0s (B,))."""
+    nb = v0s.shape[0]
+    norm0 = torch.linalg.vector_norm(v0s, dim=1)
+    v = v0s / torch.where(norm0 > 0, norm0, 1.0)[:, None]
+    rdtype = real_dtype(v0s.dtype)
+    alphas = torch.zeros(nb, m, dtype=rdtype, device=v0s.device)
+    betas = torch.zeros(nb, m, dtype=rdtype, device=v0s.device)
+    v_prev = torch.zeros_like(v)
+    beta_prev = torch.zeros(nb, dtype=rdtype, device=v0s.device)
+    for i in range(m):
+        w = matvec(v)
+        alpha = (v.conj() * w).sum(1).real
+        w = w - alpha[:, None] * v - beta_prev[:, None] * v_prev
+        beta = torch.linalg.vector_norm(w, dim=1)
+        v_next = torch.where(beta[:, None] > 0,
+                             w / torch.where(beta > 0, beta, 1.0)[:, None],
+                             torch.zeros_like(w))
+        alphas[:, i] = alpha
+        betas[:, i] = beta
+        v_prev, v, beta_prev = v, v_next, beta
+    return alphas, betas[:, :-1], norm0
 
 
 def _tridiag_eigh(a: np.ndarray, b: np.ndarray, k: int):

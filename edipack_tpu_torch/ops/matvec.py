@@ -13,6 +13,11 @@
   phonon axis, plus the phonon and electron-phonon Kronecker terms. Both
   process the rows (or terms) in chunks, so that the gathered temporary
   stays under ``CHUNK_ELEMS`` elements whatever the sector's size.
+
+Each of these operators takes a flat vector (dim,) or a (B, dim) block of
+B vectors in one call (``batched``; ``n_calls`` counts calls, not rows):
+the GF chains into one target sector run through it together
+(ops.lanczos.lanczos_tridiag_batch).
 """
 from __future__ import annotations
 
@@ -69,15 +74,15 @@ class NonLocal:
                 self.dense = (put(op.nl_b), put(np.swapaxes(op.nl_a, 1, 2)))
 
     def add_to(self, out: torch.Tensor, v: torch.Tensor) -> None:
-        """out += Σ_k B_k@V@A_kᵀ on the (DimPh, DimDw, DimUp) form."""
+        """out += Σ_k B_k@V@A_kᵀ on the (..., DimPh, DimDw, DimUp) form."""
         if self.perm is not None:
             src_a, sgn_a, src_b, sgn_b = self.perm
             for k in range(src_a.shape[0]):
-                t = v.index_select(1, src_b[k]).index_select(2, src_a[k])
-                out += t * (sgn_b[k][None, :, None] * sgn_a[k][None, None, :])
+                t = v.index_select(-2, src_b[k]).index_select(-1, src_a[k])
+                out += t * (sgn_b[k][:, None] * sgn_a[k][None, :])
         elif self.dense is not None:
             nl_b, nl_at = self.dense
-            out += torch.einsum("kde,peu,kuv->pdv", nl_b, v, nl_at)
+            out += torch.einsum("kde,...peu,kuv->...pdv", nl_b, v, nl_at)
 
     def to(self, dtype: torch.dtype) -> "NonLocal":
         out = NonLocal.__new__(NonLocal)
@@ -95,6 +100,8 @@ class KronMatvec:
     ``KronMatvec(op, dtype=...)``). A vector of another dtype is computed
     in the promoted dtype, as JAX promotes mixed operands: an f64 vector
     through the f32 operator runs in f64 on the f32-rounded factors."""
+
+    batched = True
 
     def __init__(self, op: NormalSectorOp, device: torch.device,
                  dtype: torch.dtype = DTYPE):
@@ -141,7 +148,7 @@ class KronMatvec:
         return self._promoted[dtype]
 
     def apply3(self, v: torch.Tensor) -> torch.Tensor:
-        """Matvec on the (DimPh, DimDw, DimUp) tensor form."""
+        """Matvec on the (..., DimPh, DimDw, DimUp) tensor form."""
         dtype = torch.promote_types(v.dtype, self.dtype)
         v = v.to(dtype)
         d, hup_t, hdw, nl, ph = self._operands(dtype)
@@ -151,14 +158,16 @@ class KronMatvec:
         nl.add_to(out, v)
         if ph is not None:
             ph_mat, ph_x, eph_d, eph_up_t, eph_dw = ph
-            out += torch.einsum("pq,qdu->pdu", ph_mat, v)
+            out += torch.einsum("pq,...qdu->...pdu", ph_mat, v)
             ev = eph_d * v + v @ eph_up_t + torch.matmul(eph_dw, v)
-            out += torch.einsum("pq,qdu->pdu", ph_x, ev)
+            out += torch.einsum("pq,...qdu->...pdu", ph_x, ev)
         return out
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
-        return self.apply3(v.reshape(self.shape3)).reshape(-1)
+        lead = v.shape[:-1]
+        return self.apply3(v.reshape(*lead, *self.shape3)).reshape(
+            *lead, self.dim)
 
 
 class EllMatvec:
@@ -168,6 +177,8 @@ class EllMatvec:
     Rows are padded to a fixed K with (col=i, val=0) entries; ``cols`` is
     int32. The rows are taken in chunks of ``CHUNK_ELEMS // (K * batch)``
     so that the gathered (batch, rows, K) temporary stays bounded."""
+
+    batched = True
 
     def __init__(self, cols: np.ndarray, vals: np.ndarray,
                  device: torch.device, dtype: torch.dtype = CDTYPE,
@@ -213,8 +224,10 @@ def _eph_op(op: JointSectorOp) -> JointSectorOp:
 
 
 class _JointBase:
-    """What the joint matvecs share: the (DimPh, DimEl) view of the flat
-    vector, and the phonon terms ph_mat ⊗ 1 + ph_x ⊗ E_eph."""
+    """What the joint matvecs share: the (..., DimPh, DimEl) view of the
+    flat vector or block, and the phonon terms ph_mat ⊗ 1 + ph_x ⊗ E_eph."""
+
+    batched = True
 
     def __init__(self, op: JointSectorOp, device: torch.device):
         self.dim_el = op.dim_el
@@ -244,12 +257,13 @@ class _JointBase:
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
-        v2 = v.reshape(self.dim_ph, self.dim_el).to(self.dtype)
+        lead = v.shape[:-1]
+        v2 = v.reshape(*lead, self.dim_ph, self.dim_el).to(self.dtype)
         out = self.electronic(v2)
         if self.has_ph:
             out += self.ph_mat @ v2
             out += self.ph_x @ self.eph(v2)
-        return out.reshape(-1)
+        return out.reshape(*lead, self.dim)
 
 
 class JointMatvec(_JointBase):
@@ -298,11 +312,11 @@ class JointMatvecDirect(_JointBase):
     @staticmethod
     def _scatter(out, v2, coo) -> None:
         rows, cols, vals = coo
-        step = max(1, CHUNK_ELEMS // v2.shape[0])
+        step = max(1, CHUNK_ELEMS * v2.shape[-1] // v2.numel())
         for lo in range(0, rows.shape[0], step):
             hi = lo + step
-            out.index_add_(1, rows[lo:hi],
-                           vals[lo:hi] * v2.index_select(1, cols[lo:hi]))
+            out.index_add_(-1, rows[lo:hi],
+                           vals[lo:hi] * v2.index_select(-1, cols[lo:hi]))
 
     def electronic(self, v2: torch.Tensor) -> torch.Tensor:
         out = self.diag * v2

@@ -350,12 +350,14 @@ def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
                                     sector_mask=sector_mask,
                                     hloc_anomalous=hloc_anomalous,
                                     flag_gf=flag_gf)
-    timer = PhaseTimer(device, verbose=cfg.ed_verbose)
+    timer = PhaseTimer(device, verbose=cfg.ed_verbose,
+                       trace_dir=cfg.ed_profile_dir)
     table = SectorTable(cfg)
     b = _normal_builders(cfg, table, hloc, um, bath, device)
-    with timer.phase("diagonalization"):
-        diag = diagonalize(cfg, table, b.matvec_builder, b.dense_builder,
-                           device, neigen_override=neigen_override,
-                           sector_mask=sector_mask)
-    return _finish_normal_site(cfg, table, b, diag, hloc, um, bath, device,
-                               flag_gf, timer)
+    with timer:     # the solve's trace, where a trace directory is set
+        with timer.phase("diagonalization"):
+            diag = diagonalize(cfg, table, b.matvec_builder, b.dense_builder,
+                               device, neigen_override=neigen_override,
+                               sector_mask=sector_mask)
+        return _finish_normal_site(cfg, table, b, diag, hloc, um, bath,
+                                   device, flag_gf, timer)

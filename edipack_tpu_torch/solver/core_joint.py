@@ -60,8 +60,8 @@ class _GfHarvester:
     """Shared moment machinery for the joint-mode GF passes.
 
     Dense-eig sectors resolve immediately; Lanczos channels are queued and
-    flushed grouped by target sector, every chain against the same
-    operator one after the other (greens._moments_from_phis)."""
+    flushed grouped by target sector: the chains against one operator run
+    together, as one batched chain (greens._moments_from_phis)."""
 
     def __init__(self, cfg, table, matvec_builder, dense_eig_cache):
         self.cfg = cfg

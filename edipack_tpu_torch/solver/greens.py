@@ -23,10 +23,17 @@ import torch
 
 from ..bath.functions import _block_inv
 from ..config import EDConfig
-from ..ops.lanczos import lanczos_tridiag
+from ..ops.lanczos import lanczos_tridiag, lanczos_tridiag_batch
 from ..ops.sector_ops import spin_axis_op
 from ..sectors import Sector, SectorTable
 from .eigenspace import StateList
+
+# bytes of the live vectors of one batched GF launch (about 4 a chain, 16
+# bytes an element): edipack_tpu's chunk bound, so that the chunks match
+GF_BATCH_BYTES = 1 << 28
+# a test hook: False runs every GF chain one at a time (the same moments,
+# another order of sums)
+BATCH_CHAINS = True
 
 
 @dataclass
@@ -136,12 +143,15 @@ def _moments_from_phi(matvec, phi: torch.Tensor, m: int, dense_eig=None):
         # layout (a norm-preserving permutation + padding)
         phi = matvec.to_internal_flat(phi)
     alphas, betas, norm0 = lanczos_tridiag(matvec, phi, m)
-    a = alphas.cpu().numpy()
-    b = betas.cpu().numpy()
-    n0 = float(norm0)
+    return _tridiag_moments(alphas.cpu().numpy(), betas.cpu().numpy(),
+                            float(norm0), m)
+
+
+def _tridiag_moments(a: np.ndarray, b: np.ndarray, n0: float, m: int):
+    """Weights and energies of one chain's (alphas, betas, norm0), the
+    tridiagonal truncated at breakdown and solved on the host."""
     if n0 < 1e-15:
         return np.zeros(0), np.zeros(0)
-    # truncate at breakdown
     k = m
     for i in range(m - 1):
         if b[i] < 1e-13 * max(1.0, np.abs(a).max()):
@@ -155,9 +165,34 @@ def _moments_from_phi(matvec, phi: torch.Tensor, m: int, dense_eig=None):
 
 
 def _moments_from_phis(matvec, phis: List[torch.Tensor], m: int):
-    """Moments of several start vectors in the SAME target sector, one
-    chain after the other."""
-    return [_moments_from_phi(matvec, phi, max(2, m)) for phi in phis]
+    """Moments of several start vectors in the SAME target sector
+    (edipack_tpu.solver.greens._moments_from_phis): the chains run together
+    through an operator that takes a (B, dim) block (``batched``), in
+    chunks of at most ``GF_BATCH_BYTES`` of live vectors; one after the
+    other through the others (B1/B2's fused operators) and when there is
+    one φ. The (B, m) tridiagonals are solved on the host."""
+    m = max(2, m)
+    if len(phis) == 1 or not (BATCH_CHAINS
+                              and getattr(matvec, "batched", False)):
+        return [_moments_from_phi(matvec, phi, m) for phi in phis]
+    to_internal = getattr(matvec, "to_internal_flat", None)
+    dim = phis[0].numel()
+    max_b = max(2, GF_BATCH_BYTES // max(1, 4 * dim * 16))
+    out = []
+    for lo in range(0, len(phis), max_b):
+        chunk = [p.reshape(-1) for p in phis[lo:lo + max_b]]
+        if len(chunk) == 1:
+            out.append(_moments_from_phi(matvec, chunk[0], m))
+            continue
+        if to_internal is not None:
+            chunk = [to_internal(p) for p in chunk]
+        v0s = torch.stack(chunk)    # mixed dtypes promote, as in jnp.stack
+        alphas, betas, norm0s = lanczos_tridiag_batch(matvec, v0s, m)
+        a, b = alphas.cpu().numpy(), betas.cpu().numpy()
+        n0 = norm0s.cpu().numpy()
+        out.extend(_tridiag_moments(a[i], b[i], float(n0[i]), m)
+                   for i in range(len(chunk)))
+    return out
 
 
 def build_gf_normal(cfg: EDConfig, table: SectorTable, sl: StateList,

@@ -245,9 +245,10 @@ def test_superc_twin_state_against_jax():
 
 @pytest.mark.cuda
 def test_kron_graph_replay_on_card():
-    """On a CUDA tensor JointKronMatvec replays apply() as a CUDA graph: two
-    different vectors give apply()'s results (the static input buffer is
-    refreshed), and the operator still matches JAX's dense matrix."""
+    """On a CUDA tensor JointKronMatvec replays apply() as a CUDA graph, one
+    for each input shape: two different vectors, and two different (3, dim)
+    blocks, give apply()'s results (the static input buffer is refreshed),
+    and the operator still matches JAX's dense matrix."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (CUDA graphs have no CPU mode)")
     jop, _, sec, args = _build("nonsu2-phonon")
@@ -255,12 +256,12 @@ def test_kron_graph_replay_on_card():
     mv = build_joint_kron_op(args[0], sec, *args[1:4], dev,
                              hloc_anomalous=args[4])
     rng = np.random.default_rng(6)
-    for _ in range(2):
-        v = torch.as_tensor(rng.normal(size=mv.dim)
-                            + 1j * rng.normal(size=mv.dim), device=dev)
+    for shape in ((mv.dim,), (mv.dim,), (3, mv.dim), (3, mv.dim)):
+        v = torch.as_tensor(rng.normal(size=shape)
+                            + 1j * rng.normal(size=shape), device=dev)
         want = mv.apply(v)
         got = mv(v)
-        assert mv._graph is not None
+        assert shape in mv._graphs and got.shape == shape
         assert float((got - want).abs().max()) <= 1e-14 * float(
             want.abs().max())
     dense = _dense(mv, mv.dim, internal=True)
