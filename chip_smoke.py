@@ -4,7 +4,14 @@
     python3 chip_smoke.py
 
 Phases, run in this order (each raises on failure; the exit code is
-non-zero on any fault):
+non-zero on any fault). Once the solve phase is done, the LANE phases
+(mesh, joint, then dmft) run in a second process of this script
+(``--lane OUT E77``, in a process group of its own, killed with the
+script) beside the main phases (trace, extras, ineq, capi), whose
+host-bound solves leave the card idle most of the time; its log is
+printed and its report read once the main phases are done, and its
+failure fails the run. Every kernel time of the kernel report is taken
+before it starts:
   build   build the CUDA kernels from csrc/ (one nvcc per source, started
           together) and print nvcc's register report of each kernel
   kernel  every kernel against its plain PyTorch version, with CUDA-event
@@ -61,7 +68,8 @@ non-zero on any fault):
   ineq    inequivalent sites (EDIneqSolver) through B1: (a) the ineq golden
           (tests/data/torch_port_golden_ineq.json, from edipack_tpu): three
           n2b4 sites with a staggered Hloc and per-site uloc_ii / ust_ii, a
-          statics-only call, a full call, fit_gf by L-BFGS-B to (D/2)² G
+          full call (the statics-only call is left to the CPU test
+          tests/test_torch_ineq.py), fit_gf by L-BFGS-B to (D/2)² G
           and the second iteration from the fitted baths, every site held
           at the solve goldens' TOL (the fit and the second iteration at
           the DMFT golden's), then two superc sites through the per-site
@@ -91,6 +99,23 @@ non-zero on any fault):
           DMFT loops on the card: its printed numbers finite, and loop 1's
           density equal to the Python path's (ed_solve of the same
           problem in this process) at its printed precision
+  mesh    multi-GPU on torch.distributed: MESH_WORLD ranks, each a
+          process of this script (``--mesh-rank R DIR BACKEND``), over
+          gloo with host-staged collectives on one card (NCCL, a card a
+          rank, when there are as many cards): (a) B1 and B2 on each
+          rank's row range of config 2's (7,7) sector, from the gathered
+          V3, bitwise equal to the single-card kernels' rows, the
+          sharded matvec (gather + kernel) timed beside the row-range
+          kernel and the single-card one; (b) the (7,7) sector's lowest
+          level by eigsh_lowest through the sharded B1 operator
+          (MESH_RESTARTS sweeps) within 1e-10 of the single-card
+          eigsh_lowest with the same sweeps; (c) config 2 at MESH_NBATH
+          (largest sector 853,776 states, through B1 row ranges; one
+          level a sector, twin sectors rebuilt) through ed_solve on the
+          ranks against the unsharded solve of this process: e0 1e-10,
+          dens, docc, G 1e-8, B1 launches > 0 on each rank. The ranks'
+          results come back through a temporary directory under build/;
+          a rank that fails or outlives MESH_TIMEOUT fails the phase
   joint   the superc / nonsu2 modes in complex128 (no kernel of the four
           is on this path: the JAX joint operators are plain jnp, the
           port's are PyTorch): (a) the joint golden
@@ -103,10 +128,8 @@ non-zero on any fault):
           other, every kept state's residual through the other route's
           operator, complete ground multiplets, and the normal GF's
           weights summing to 1 per channel; every GF chain into one target
-          sector runs in one batched chain, and config 4's G on the ELL
-          route is rebuilt from the same solve's states with the chains
-          one at a time (greens.BATCH_CHAINS off) and held to the
-          batched one at GF_SINGLE_TOL, both timed; (d) the
+          sector runs in one batched chain (the chains one at a time
+          against batched: tests/test_torch_gf_batch.py); (d) the
           reference-scale superc Sz=0 sector at nbath=5 (2,704,156 states): the ELL, the
           blocked-Kron (one gather group a block pair, and in groups of
           <= 6 terms) and a cuSPARSE complex128 CSR product held to each
@@ -119,8 +142,9 @@ Each kernel's path (the f64 solve for B1, the f32 solve for B2, the
 power-step entry for B3, the row-gather Lanczos for B4, and for B1 also
 the second DMFT iteration, the extras golden's solves and Krylov
 chains, the ineq golden's sweeps, config 2's two-site sweep and its
-Krylov chains, and each C driver, whose process writes its counts at
-finalize) runs with every launch counter set to 0 just before it and read
+Krylov chains, each C driver, whose process writes its counts at
+finalize, and each mesh rank's sharded solve, counted in the rank's
+process) runs with every launch counter set to 0 just before it and read
 just after. The line before
 the last is the kernel report (JSON), printed only once every phase has
 run: ``launches`` from those paths, ``max_abs_err``, ``ms`` (L2 flushed),
@@ -194,8 +218,8 @@ CHI_FLAGS = dict(chispin_flag=True, chidens_flag=True, chipair_flag=True,
 # TOL_F32_EXACT, as the f32 golden file's (tests/test_torch_f32.py): on the
 # solve's own grid (beta = 1000) the lowest frequencies magnify the f32
 # error of the low excitation energies
-# the ineq golden: the solve goldens' TOL for the statics-only call and the
-# first iteration, the DMFT golden's for the fit and the second iteration
+# the ineq golden: the solve goldens' TOL for the first iteration, the DMFT
+# golden's for the fit and the second iteration
 # (a fitted bath is held at 1e-7, and the second iteration starts from it)
 TOL_INEQ_LOOP2 = dict(TOL_DMFT, energies=TOL_DMFT["dens"])
 # config 2's second site in the sweep (ineq (b)): Hloc -0.1 on both
@@ -793,6 +817,7 @@ def phase_solve(report: dict) -> None:
     # (B4)
     sec77 = res.table.by_qn(("n", (7,), (7,)))
     e77 = float(res.diag.evals_by_sector[sec77.index][0])
+    report["e77"] = e77
     tiles = kt.KronTileMatvec(build_normal_sector_op(
         cfg, sec77, res.hloc, res.um, res.bath), dev)
     torch.cuda.synchronize()
@@ -1398,8 +1423,9 @@ def _ineq_check(tag: str, solver, recs: list, z, keys, tol: dict) -> None:
 
 def _ineq_golden(report: dict) -> None:
     """(a) tests/data/torch_port_golden_ineq.json: three n2b4 sites through
-    B1 (statics-only call, full call, fit_gf, second iteration), then two
-    superc sites through the per-site loop."""
+    B1 (full call, fit_gf, second iteration; the statics-only call is
+    held by tests/test_torch_ineq.py::test_ineq_solver_against_jax), then
+    two superc sites through the per-site loop."""
     import torch
     import edipack_tpu_torch as ed
     with open(GOLDEN_INEQ) as fh:
@@ -1416,10 +1442,6 @@ def _ineq_golden(report: dict) -> None:
                 ust_ii=np.array(gold["ust_ii"]))
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    solver.solve(baths, flag_gf=False, **over)
-    _ineq_check("ineq statics", solver, gold["statics"], z,
-                ("e0", "dens", "docc", "energies"), TOL)
     t1 = time.perf_counter()
     solver.solve(baths, **over)
     _ineq_check("ineq loop 1", solver, gold["loop1"], z,
@@ -1437,8 +1459,8 @@ def _ineq_golden(report: dict) -> None:
     _ineq_check("ineq loop 2", solver, gold["loop2"], z,
                 ("e0", "dens", "docc", "energies", "gimp", "sigma"),
                 TOL_INEQ_LOOP2)
-    print(f"[ineq] (a) three n2b4 sites: statics-only sweep {t1 - t0:.2f} s, "
-          f"full sweep {t2 - t1:.2f} s, fit_gf {t3 - t2:.2f} s, second "
+    print(f"[ineq] (a) three n2b4 sites: full sweep {t2 - t1:.2f} s, "
+          f"fit_gf {t3 - t2:.2f} s, second "
           f"sweep {t4 - t3:.2f} s; B1 launches {n}; matvecs per site "
           f"{[s.result.n_matvecs for s in solver.solvers]}")
     if n <= 0:
@@ -1788,9 +1810,6 @@ TOL_CROSS = dict(e0=1e-10, gimp=1e-8, impf=1e-8, phi=1e-8, dens=1e-8,
                  docc=1e-8)
 RESID_RTOL = 1e-8
 JOINT_RTOL = 1e-12        # the 2.7M-state operators against each other
-# config 4's G from its chains run together against one at a time: only
-# the order of sums differs (a CPU run of config 4 cut to nbath=2: 4.4e-14)
-GF_SINGLE_TOL = 1e-10
 # configs 3 and 4 (CONFIG3, CONFIG4, their levels a sector JOINT_NEV and
 # config 4's spin-mixing Hloc) are edipack_tpu_torch/profile_solve.py's
 
@@ -1945,53 +1964,12 @@ def _joint_configs(report: dict) -> None:
               direct=_joint_solve("config 4 nonsu2, direct", CONFIG4, h4,
                                   direct))
     _cross_check("config 4", c4["ell"], c4["direct"], direct)
-    _gf_one_at_a_time("config 4, ELL", c4["ell"]["res"])
     _cross_check("config 4 (direct states)", c4["direct"], c4["ell"],
                  dict(ed_sparse_h=True))
     report["config3"] = {k: dict(wall_s=v["wall"], **v["res"].timings)
                          for k, v in c3.items()}
     report["config4"] = {k: dict(wall_s=v["wall"], **v["res"].timings)
                          for k, v in c4.items()}
-
-
-def _gf_one_at_a_time(label: str, res) -> None:
-    """The GF of ``res``'s kept states rebuilt on fresh operators of its
-    route: batched (building the operators), then one chain at a time; the
-    two held to each other at GF_SINGLE_TOL and timed."""
-    from unittest import mock
-    import torch
-    from edipack_tpu_torch.solver import core_joint as cj, greens
-    b = cj.joint_builders(res.cfg, res.table, res.hloc, res.um, res.bath,
-                          torch.device(DEVICE), res.hloc_anomalous)
-    build = cj.build_gf_superc if res.cfg.ed_mode == "superc" \
-        else cj.build_gf_nonsu2
-    times, gfs = {}, {}
-    for kind in ("batched", "single"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with mock.patch.object(greens, "BATCH_CHAINS", kind == "batched"):
-            gfs[kind] = build(res.cfg, res.table, res.diag.state_list,
-                              b.matvec_builder, b.dense_eig_cache)
-        torch.cuda.synchronize()
-        times[kind] = time.perf_counter() - t0
-    z = _z(res.cfg.beta)
-    keys = sorted(res.gf.channels, key=str)
-    if sorted(gfs["single"].channels, key=str) != keys:
-        fail(f"{label}: the single chains give other GF channels")
-    dev = max(float(np.max(np.abs(gfs["single"].eval(k, z)
-                                  - gfs["batched"].eval(k, z))))
-              for k in keys)
-    dev_solve = max(float(np.max(np.abs(res.gf.eval(k, z)
-                                        - gfs["batched"].eval(k, z))))
-                    for k in keys)
-    print(f"[joint]   {label}: GF of {len(keys)} channels rebuilt: batched "
-          f"{times['batched']:.2f} s (operators built; the solve's GF phase "
-          f"{res.timings['greens_functions']:.2f} s), one chain at a time "
-          f"{times['single']:.2f} s; single vs batched {dev:.3e} (limit "
-          f"{GF_SINGLE_TOL}), batched vs the solve's {dev_solve:.3e}")
-    if not (dev <= GF_SINGLE_TOL and dev_solve <= GF_SINGLE_TOL):
-        fail(f"{label}: G one chain at a time differs by {dev:.3e} "
-             f"(the solve's by {dev_solve:.3e})")
 
 
 def _big_sector(report: dict, mode: str, nbath: int = 5) -> None:
@@ -2142,6 +2120,293 @@ def phase_joint(report: dict) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+MESH_WORLD = 2             # ranks of the mesh phase
+# its whole sharded solve: config 2 at nbath 5, cut in depth to one level a
+# sector and with the twin sectors rebuilt (every collective of two ranks
+# on one card goes through the host: 1.3 ms an all-reduce; the full-depth
+# solve took 286.75 s against 32.28 s on one card)
+MESH_NBATH = 5
+MESH_SOLVE = dict(lanc_nstates_sector=1, ed_twin=True)
+MESH_RESTARTS = 4         # (7,7) ground state: Lanczos sweeps of 48 steps
+MESH_TIMEOUT = 600        # seconds: the ranks' group timeout and the wait
+MESH_SEED = 29            # V3 of the row-range check
+MESH_REPS = 10            # timed sharded matvecs (collective: every rank)
+MESH_IFNAME = "lo"        # gloo's interface (GLOO_SOCKET_IFNAME) when unset
+
+
+def _mesh_sector77():
+    """Config 2's (7,7) sector: its fused operands' host tables."""
+    from edipack_tpu_torch.ops.fused_normal import build_fused_normal
+    return build_fused_normal(sector_op(2, 6, 7, 7), 2)
+
+
+def _mesh_v3(mv, dtype):
+    """A seeded V3 (the same in every process on the card) in the fused
+    operator's layout, whole; its padding is zeroed by ``v0_project``."""
+    import torch
+    g = torch.Generator(device=mv.device).manual_seed(MESH_SEED)
+    return torch.randn(mv.dim, generator=g, dtype=torch.float64,
+                       device=mv.device).to(dtype)
+
+
+def _mesh_solve(device, workdir: str) -> dict:
+    """Config 2 at MESH_NBATH through the entry points on ``device`` (on
+    every rank of an initialized group, split over them), in ``workdir``
+    (no restart file there)."""
+    import torch
+    import edipack_tpu_torch.main as ed
+    from edipack_tpu_torch.config import default_config
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    cfg = default_config(norb=2, nbath=MESH_NBATH, nspin=1, ed_verbose=0,
+                         **KANAMORI, **MESH_SOLVE)
+    ed.ed_init_solver(cfg=cfg, device=device)
+    ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ed.ed_solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(e0=float(res.e0), dens=ed.ed_get_dens().tolist(),
+               docc=ed.ed_get_docc().tolist(),
+               gimp=ed.ed_get_gimp(_z(cfg.beta)).ravel().tolist(),
+               wall_s=wall, timings=res.timings, matvecs=res.n_matvecs,
+               launches=read_counts()["B1"],
+               largest=max(res.table.get_dim(i)
+                           for i in range(len(res.table))))
+    out["gimp"] = [[z.real, z.imag] for z in out["gimp"]]
+    ed.ed_finalize_solver()
+    return out
+
+
+def mesh_rank(rank: int, out_dir: str, backend: str) -> int:
+    """One rank of the mesh phase (``chip_smoke.py --mesh-rank R DIR
+    BACKEND``): (a) B1 and B2 on this rank's rows of the (7,7) sector,
+    written to DIR, and the sharded matvec timed; (b) the (7,7) lowest
+    level through the sharded B1 operator; (c) config 2 at MESH_NBATH
+    through ed_solve. Its numbers go to DIR/rank<R>.json."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    try:
+        torch.set_num_threads(LANE_THREADS)
+        dev = torch.device(f"cuda:{rank}" if backend == "nccl" else "cuda:0")
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=f"file://{os.path.join(out_dir, 'store')}",
+            rank=rank, world_size=MESH_WORLD,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+        from edipack_tpu_torch.ops import fused_matvec as fm
+        from edipack_tpu_torch.ops.lanczos import eigsh_lowest
+        from edipack_tpu_torch.parallel import mesh as pm
+        mesh = pm.make_mesh(dev)
+        out = dict(rank=rank, mesh=repr(mesh), device=str(dev))
+        print(f"[mesh rank {rank}] {mesh}, GLOO_SOCKET_IFNAME "
+              f"{os.environ.get('GLOO_SOCKET_IFNAME')}", flush=True)
+        one = torch.ones((), dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            mesh.allreduce_sum(one)
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+        fop = _mesh_sector77()
+        for tag, dtype in (("b1", torch.float64), ("b2", torch.float32)):
+            part = fm.ShardedFusedKron(fop, dev, dtype, mesh)
+            v = part.v0_project(part.local(_mesh_v3(part, dtype)))
+            w = part(v)
+            torch.save(w.cpu(), os.path.join(out_dir, f"{tag}_{rank}.pt"))
+            full = part.gather(v).reshape(-1, 128)
+            out[tag] = dict(
+                rows=list(part.rows), ms=cuda_ms(lambda: part(v),
+                                                 reps=MESH_REPS),
+                gather_ms=cuda_ms(lambda: part.gather(v), reps=MESH_REPS),
+                kernel_ms=cuda_ms(lambda: fm.fused_matvec(full, part.ops,
+                                                          part.rows)))
+            print(f"[mesh rank {rank}] {tag}: {out[tag]}", flush=True)
+            del part, v, w, full
+        part = fm.ShardedFusedKron(fop, dev, torch.float64, mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        pm.n_gathers = 0
+        t0 = time.perf_counter()
+        stats: dict = {}
+        vals, _ = eigsh_lowest(part, part.dim, 1, tol=1e-14, stats=stats,
+                               max_restarts=MESH_RESTARTS, mesh=mesh)
+        torch.cuda.synchronize()
+        out["e77"] = dict(e0=float(vals[0]), s=time.perf_counter() - t0,
+                          matvecs=stats["n_matvecs"],
+                          launches=read_counts()["B1"],
+                          gathers=pm.n_gathers)
+        print(f"[mesh rank {rank}] (7,7): {out['e77']}", flush=True)
+        del part
+        torch.cuda.empty_cache()
+        pm.n_gathers = pm.n_reduces = 0
+        out["solve"] = _mesh_solve(dev, os.path.join(out_dir, f"solve{rank}"))
+        out["solve"].update(gathers=pm.n_gathers, reduces=pm.n_reduces)
+        print(f"[mesh rank {rank}] nbath {MESH_NBATH}: wall "
+              f"{out['solve']['wall_s']:.2f} s, {out['solve']['timings']}, "
+              f"{pm.n_gathers} gathers, {pm.n_reduces} all-reduces",
+              flush=True)
+        print(f"[mesh rank {rank}] done: (7,7) e0 {out['e77']['e0']:.12f}, "
+              f"nbath {MESH_NBATH} e0 {out['solve']['e0']:.12f}", flush=True)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.destroy_process_group()
+        return 0
+    except Exception:                                   # noqa: BLE001
+        traceback.print_exc()
+        sys.stdout.flush()
+        return 1
+
+
+def _mesh_ranks(out_dir: str, backend: str) -> list:
+    """Start the ranks, wait for them (killing them all at MESH_TIMEOUT),
+    print their logs' mesh lines, and return their results; a rank that
+    fails fails the phase."""
+    procs, logs = [], []
+    # the ranks share this host: gloo's pairs connect over the loopback
+    # interface, not over the address the host name resolves to
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", MESH_IFNAME)
+    for r in range(MESH_WORLD):
+        log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), out_dir, backend], stdout=log, stderr=subprocess.STDOUT,
+            cwd=out_dir, env=env))
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(out_dir, f"rank{r}.log")) as fh:
+            text = fh.read()
+        for line in text.splitlines():
+            if line.startswith("[mesh"):
+                print(line)
+        if p.returncode != 0:
+            print(text[-4000:])
+            fail(f"mesh rank {r} exited with {p.returncode}")
+    out = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def phase_mesh(report: dict) -> None:
+    """Two ranks of torch.distributed on the card (gloo, host-staged, when
+    there is one card; NCCL, one card a rank, when there are two): B1/B2
+    row ranges at (7,7) bitwise against the single-card kernels, the
+    sharded (7,7) ground state against the single-card one, and a whole
+    sharded config 2 solve at MESH_NBATH against the unsharded one. The
+    single-card references run first, in this process."""
+    import shutil
+    import tempfile
+    import torch
+    from edipack_tpu_torch.ops import fused_matvec as fm
+    from edipack_tpu_torch.ops.lanczos import eigsh_lowest
+    dev = torch.device(DEVICE)
+    backend = "nccl" if torch.cuda.device_count() >= MESH_WORLD else "gloo"
+    print(f"[mesh] backend {backend}, world size {MESH_WORLD}, card "
+          f"{card_line()}", flush=True)
+    fop = _mesh_sector77()
+    ref = {}
+    for tag, dtype in (("b1", torch.float64), ("b2", torch.float32)):
+        whole = fm.FusedKron(fop, dev, dtype)
+        v = whole.v0_project(_mesh_v3(whole, dtype))
+        ref[tag] = whole(v).cpu().view(whole.nbu, whole.ddp, 128)
+        v3 = v.reshape(-1, 128)
+        ref[tag + "_ms"] = cuda_ms(lambda: fm.fused_matvec(v3, whole.ops))
+        del whole, v, v3
+    whole = fm.FusedKron(fop, dev, torch.float64)
+    t0 = time.perf_counter()
+    vals, _ = eigsh_lowest(whole, whole.dim, 1, tol=1e-14,
+                           max_restarts=MESH_RESTARTS)
+    torch.cuda.synchronize()
+    e77, t77 = float(vals[0]), time.perf_counter() - t0
+    del whole, vals
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT,
+                                                                 "build"))
+    cwd = os.getcwd()
+    try:
+        try:
+            plain = _mesh_solve(DEVICE, os.path.join(out_dir, "single"))
+        finally:
+            os.chdir(cwd)
+        torch.cuda.empty_cache()
+        print(f"[mesh] single card: (7,7) e0 {e77:.12f} in {t77:.2f} s; B1 "
+              f"{ref['b1_ms']:.4f} ms, B2 {ref['b2_ms']:.4f} ms back to "
+              f"back; nbath {MESH_NBATH} solve e0 {plain['e0']:.12f} in "
+              f"{plain['wall_s']:.2f} s ({plain['matvecs']} matvecs, B1 "
+              f"{plain['launches']})", flush=True)
+        t0 = time.perf_counter()
+        ranks = _mesh_ranks(out_dir, backend)
+        wall_ranks = time.perf_counter() - t0
+        for rk in ranks:
+            r = rk["rank"]
+            for tag in ("b1", "b2"):
+                row0, nrows = rk[tag]["rows"]
+                got = torch.load(os.path.join(out_dir, f"{tag}_{r}.pt"))
+                want = ref[tag][:, row0:row0 + nrows].reshape(-1)
+                same = torch.equal(got, want)
+                print(f"[mesh] (a) rank {r} {tag.upper()} rows {row0}:"
+                      f"{row0 + nrows}: bitwise equal to the single card "
+                      f"{same}; sharded matvec (gather + kernel) "
+                      f"{rk[tag]['ms']:.4f} ms, the row-range kernel "
+                      f"{rk[tag]['kernel_ms']:.4f} ms, single card "
+                      f"{ref[tag + '_ms']:.4f} ms (back to back)")
+                if not same:
+                    fail(f"mesh rank {r}: {tag} rows differ from the single "
+                         f"card's")
+            e = rk["e77"]
+            dev_e = abs(e["e0"] - e77)
+            print(f"[mesh] (b) rank {r} (7,7) e0 {e['e0']:.12f}, |diff| "
+                  f"{dev_e:.3e} (limit 1e-10; {MESH_RESTARTS} sweeps, "
+                  f"converged level of the solve phase "
+                  f"{report.get('e77', float('nan')):.12f}); "
+                  f"{e['matvecs']} matvecs, {e['launches']} B1 launches, "
+                  f"{e['s']:.2f} s; all-reduce {rk['allreduce_ms']:.3f} ms")
+            if not (dev_e <= 1e-10 and e["launches"] > 0):
+                fail(f"mesh rank {r}: sharded (7,7) e0 off by {dev_e:.3e} "
+                     f"or no B1 launch ({e['launches']})")
+            sv = rk["solve"]
+            devs = {k: float(np.max(np.abs(np.asarray(sv[k])
+                                           - np.asarray(plain[k]))))
+                    for k in ("e0", "dens", "docc", "gimp")}
+            print(f"[mesh] (c) rank {r} nbath {MESH_NBATH} (largest sector "
+                  f"{sv['largest']}): e0 {sv['e0']:.12f}, wall "
+                  f"{sv['wall_s']:.2f} s (single card {plain['wall_s']:.2f}"
+                  f" s), B1 launches {sv['launches']}, {sv['gathers']} "
+                  f"gathers, {sv['reduces']} all-reduces; deviations "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in devs.items()))
+            for k, v in devs.items():
+                if not v <= TOL[k]:
+                    fail(f"mesh rank {r}: sharded solve {k} off by {v:.3e}")
+            if sv["launches"] <= 0:
+                fail(f"mesh rank {r}: the sharded solve launched no B1")
+        report["mesh"] = dict(backend=backend, world=MESH_WORLD,
+                              wall_ranks_s=wall_ranks, single=plain,
+                              e77=e77, ranks=ranks,
+                              b1_ms=ref["b1_ms"], b2_ms=ref["b2_ms"])
+        print(f"[mesh] ranks done in {wall_ranks:.1f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def _observables() -> dict:
     import edipack_tpu_torch.main as ed
     return dict(dens=ed.ed_get_dens(), docc=ed.ed_get_docc(),
@@ -2207,6 +2472,8 @@ def kernel_report(report: dict) -> list:
              launches_ineq_golden=report["B1_launches_ineq_golden"],
              launches_ineq=report["B1_launches_ineq"],
              launches_capi=report["B1_launches_capi"],
+             launches_mesh_solve=[r["solve"]["launches"]
+                                  for r in report["mesh"]["ranks"]],
              max_abs_err=max(s["err64"] for s in report["fused"]),
              ms=big["b1"], ms_back_to_back=big["b1_b2b"],
              plain_ms=big["b1_plain"],
@@ -2249,31 +2516,128 @@ def kernel_report(report: dict) -> list:
     ]
 
 
-def main() -> int:
+MAIN = (("build", phase_build), ("kernel", phase_kernel),
+        ("golden", phase_golden), ("solve", phase_solve),
+        ("trace", phase_trace), ("extras", phase_extras),
+        ("ineq", phase_ineq), ("capi", phase_capi))
+LANE = (("mesh", phase_mesh), ("joint", phase_joint), ("dmft", phase_dmft))
+LANE_AFTER = "solve"      # the lane starts once this main phase is done
+LANE_WAIT = 600           # seconds the main process waits for it at the end
+LANE_THREADS = 2          # torch CPU threads of the lane and the mesh ranks
+
+
+def _setup() -> None:
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda is not available; this smoke run "
-              "needs one CUDA card", file=sys.stderr)
-        return 1
     sys.path.insert(0, ROOT)
     import edipack_tpu_torch  # noqa: F401  (fails outside the repository)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def run_phases(report: dict, phases) -> None:
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        fn(report)
+        print(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+
+def lane(out_json: str, e77: str) -> int:
+    """The LANE phases in this process (``chip_smoke.py --lane OUT E77``;
+    E77: the solve phase's (7,7) level, printed beside the mesh phase's):
+    their report, as JSON, to OUT."""
+    import torch
+    _setup()
+    torch.set_num_threads(LANE_THREADS)
+    report: dict = {"e77": float(e77)}
+    t0 = time.perf_counter()
+    run_phases(report, LANE)
+    print(f"[lane] {', '.join(n for n, _ in LANE)} done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with open(out_json, "w") as fh:
+        json.dump(report, fh, default=str)
+    return 0
+
+
+def _start_lane(report: dict) -> dict:
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="lane_", dir=os.path.join(ROOT, "build"))
+    with open(os.path.join(out, "lane.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--lane",
+             os.path.join(out, "report.json"), repr(report["e77"])],
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    print(f"[lane] {', '.join(n for n, _ in LANE)} started beside the main "
+          f"phases (pid {proc.pid})", flush=True)
+    return dict(proc=proc, dir=out, t0=time.perf_counter())
+
+
+def _stop_lane(ln: dict) -> None:
+    """Kill the lane's process group (the lane and its mesh ranks)."""
+    import signal
+    if ln["proc"].poll() is None:
+        try:
+            os.killpg(ln["proc"].pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        ln["proc"].wait()
+
+
+def _join_lane(ln: dict, report: dict) -> None:
+    """Wait for the lane (at most LANE_WAIT s), print its log and merge its
+    report; a lane that failed or did not end fails the run."""
+    import shutil
+    t_wait = time.perf_counter()
+    try:
+        rc = ln["proc"].wait(timeout=LANE_WAIT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        _stop_lane(ln)
+    with open(os.path.join(ln["dir"], "lane.log")) as fh:
+        text = fh.read()
+    print(text, end="", flush=True)
+    if rc != 0:                 # the lane's fault on stderr too
+        print(text[-6000:], file=sys.stderr, flush=True)
+    print(f"[lane] exit {rc}, joined {time.perf_counter() - ln['t0']:.1f} s "
+          f"after it started; the main process waited "
+          f"{time.perf_counter() - t_wait:.1f} s for it", flush=True)
+    if rc != 0:
+        fail(f"the lane ({', '.join(n for n, _ in LANE)}) "
+             f"{'did not end' if rc is None else f'exited with {rc}'}")
+    with open(os.path.join(ln["dir"], "report.json")) as fh:
+        report.update(json.load(fh))
+    shutil.rmtree(ln["dir"], ignore_errors=True)
+
+
+def main() -> int:
+    import torch
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-rank":
+        return mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this smoke run "
+              "needs one CUDA card", file=sys.stderr)
+        return 1
+    if len(sys.argv) == 4 and sys.argv[1] == "--lane":
+        return lane(sys.argv[2], sys.argv[3])
+    _setup()
     print(card_line())          # name, power limit, as nvidia-smi gives them
     print(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     report: dict = {}
     t_all = time.perf_counter()
-    for name, fn in (("build", phase_build), ("kernel", phase_kernel),
-                     ("golden", phase_golden), ("solve", phase_solve),
-                     ("trace", phase_trace), ("dmft", phase_dmft), ("extras", phase_extras),
-                     ("ineq", phase_ineq), ("capi", phase_capi),
-                     ("joint", phase_joint)):
-        t0 = time.perf_counter()
-        fn(report)
-        print(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+    ln = None
+    try:
+        for phase in MAIN:
+            run_phases(report, (phase,))
+            if phase[0] == LANE_AFTER:
+                ln = _start_lane(report)
+        _join_lane(ln, report)
+    finally:
+        if ln is not None:
+            _stop_lane(ln)
     print(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernel_report(report)}))
     print(json.dumps({"ok": True, "device": {

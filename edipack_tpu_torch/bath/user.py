@@ -216,7 +216,10 @@ def ed_ph_trans_bath(bath_array, save: bool = False, cfg=None):
 def ed_save_array_as_bath(bath_array, cfg=None) -> None:
     """Write the packed user bath array to the ``hamiltonian.restart`` file
     (reference save_array_as_bath, ED_BATH_USER.f90:495-501)."""
+    from ..parallel.mesh import is_writer
     from .dmft_bath import save_bath_file
     cfg = cfg or get_config()
     b = array_to_bath(np.asarray(bath_array, float), cfg, _global_basis)
+    if not is_writer():
+        return
     save_bath_file(b, cfg.hfile + cfg.ed_file_suffix + ".restart")

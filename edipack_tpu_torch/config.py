@@ -331,7 +331,8 @@ def ed_read_input(path: str = "inputED.in", argv: Optional[List[str]] = None,
     cfg = EDConfig(**overrides)
     cfg.validate()
     set_config(cfg)
-    if write_used:
+    from .parallel.mesh import is_writer
+    if write_used and is_writer():
         try:
             save_used(cfg, os.path.join(
                 os.path.dirname(path) or ".", "used." + os.path.basename(path)))

@@ -60,6 +60,15 @@
 //     nonzero columns, its row factors in shared memory; B4: dense D), the
 //     runs and B3's scale and sum of squares are done in the same pass.
 // TMA staging, wider loads and a persistent grid are left for later.
+//
+// Row range (B1, B2): a rank of a sector split over several cards owns the
+// rows [row0, row0 + nrows) of the padded dw axis. The kernel then reads
+// the whole gathered V3, stages and computes only those rows, and writes
+// them to a V3-shaped output of nrows rows (W3[(j*nrows + d - row0)*128 +
+// c]). A row's sum does not depend on which block owns it, so a rank's
+// rows equal the whole product's, bit for bit; the Jx/Jp runs are clipped
+// to the owned rows by the per-row test they already have, while their
+// source rows may lie in any rank's range.
 
 #include <cuda_runtime.h>
 
@@ -89,6 +98,7 @@ struct Args {
   int wup, wdw;
   int nd, nu;          // rows d and columns u of V (blocked: padded)
   int rows;            // rows of d per block
+  int row0, nrows;     // the output's rows [row0, row0 + nrows) of nd
 };
 
 // Offset of V[d, u]: column-blocked or row-major.
@@ -113,8 +123,8 @@ row_gather_kernel(const Args<T> a, const float* ssq_in, float* partials) {
   int* cnt_s = dwi_s + RMAX * a.wdw;                    // [RMAX]
 
   const int tid = threadIdx.x;
-  const int d0 = blockIdx.x * a.rows;
-  const int nr = min(a.rows, a.nd - d0);
+  const int d0 = a.row0 + blockIdx.x * a.rows;
+  const int nr = min(a.rows, a.row0 + a.nrows - d0);
 
   for (int i = tid; i < nr * a.wdw; i += NT) {
     const int r = i / a.wdw, e = i - r * a.wdw;
@@ -210,7 +220,7 @@ row_gather_kernel(const Args<T> a, const float* ssq_in, float* partials) {
           w *= scale;
           ss = fmaf(w, w, ss);
         }
-        a.out[off<Blocked>(d0 + r, u, a.nd, a.nu)] = w;
+        a.out[off<Blocked>(d0 + r - a.row0, u, a.nrows, a.nu)] = w;
       }
     }
   }
@@ -268,7 +278,9 @@ cudaError_t launch(Args<T> a, cudaStream_t stream,
     if (fixed + (size_t)r * a.nu * sizeof(T) <= SMEM_CAP) rows = r;
   if (rows == 0) return cudaErrorInvalidConfiguration;  // a row does not fit
   a.rows = rows;
-  const int nb = (a.nd + rows - 1) / rows;
+  if (a.row0 < 0 || a.nrows < 1 || a.row0 + a.nrows > a.nd)
+    return cudaErrorInvalidValue;
+  const int nb = (a.nrows + rows - 1) / rows;
   if (nblocks) *nblocks = nb;
   const size_t smem = fixed + (size_t)rows * a.nu * sizeof(T);
   // set on every launch: the attribute belongs to the current device
@@ -283,22 +295,25 @@ cudaError_t launch(Args<T> a, cudaStream_t stream,
 
 // The fused matvec's operands on the blocked layout, (ddp, dup) padded; the
 // diagonal factors (ddp, 8) and (dup, 8) have their nonzeros in the first
-// `rank` columns.
+// `rank` columns; the output rows [row0, row0 + nrows).
 template <typename T>
 Args<T> blocked_args(const T* v3, T* w3, const int* up_idx, const T* up_val,
                      int wup, const int* dw_idx, const T* dw_val, int wdw,
                      const T* diag_a, const T* diag_b, int rank,
                      const int* runs_i, const T* runs_v, int nruns, int ddp,
-                     int dup) {
+                     int dup, int row0, int nrows) {
   return Args<T>{v3, w3, up_idx, up_val, dw_idx, dw_val, diag_a, diag_b,
-                 runs_i, runs_v, nruns, rank, wup, wdw, ddp, dup, 0};
+                 runs_i, runs_v, nruns, rank, wup, wdw, ddp, dup, 0, row0,
+                 nrows};
 }
 
 }  // namespace
 
 extern "C" {
 
-// B1: W3 = H V3 on the column-blocked layout, in f64.
+// B1: the rows [row0, row0 + nrows) of W3 = H V3 on the column-blocked
+// layout, in f64 (row0 = 0, nrows = ddp: the whole product); w3 holds
+// nbu * nrows * 128 values.
 cudaError_t fused_normal_matvec_f64(const double* v3, double* w3,
                                     const int* up_idx, const double* up_val,
                                     int wup, const int* dw_idx,
@@ -306,10 +321,12 @@ cudaError_t fused_normal_matvec_f64(const double* v3, double* w3,
                                     const double* diag_a, const double* diag_b,
                                     int rank, const int* runs_i,
                                     const double* runs_v, int nruns, int ddp,
-                                    int dup, cudaStream_t stream) {
+                                    int dup, int row0, int nrows,
+                                    cudaStream_t stream) {
   return launch<double, true>(
       blocked_args(v3, w3, up_idx, up_val, wup, dw_idx, dw_val, wdw, diag_a,
-                   diag_b, rank, runs_i, runs_v, nruns, ddp, dup),
+                   diag_b, rank, runs_i, runs_v, nruns, ddp, dup, row0,
+                   nrows),
       stream);
 }
 
@@ -321,10 +338,12 @@ cudaError_t fused_normal_matvec_f32(const float* v3, float* w3,
                                     const float* diag_a, const float* diag_b,
                                     int rank, const int* runs_i,
                                     const float* runs_v, int nruns, int ddp,
-                                    int dup, cudaStream_t stream) {
+                                    int dup, int row0, int nrows,
+                                    cudaStream_t stream) {
   return launch<float, true>(
       blocked_args(v3, w3, up_idx, up_val, wup, dw_idx, dw_val, wdw, diag_a,
-                   diag_b, rank, runs_i, runs_v, nruns, ddp, dup),
+                   diag_b, rank, runs_i, runs_v, nruns, ddp, dup, row0,
+                   nrows),
       stream);
 }
 
@@ -351,7 +370,7 @@ cudaError_t fused_normal_power_f32(const float* v3, float* buf0, float* buf1,
     cudaError_t err = launch<float, true, true>(
         blocked_args(vin, bufs[it % 2], up_idx, up_val, wup, dw_idx, dw_val,
                      wdw, diag_a, diag_b, rank, runs_i, runs_v, nruns, ddp,
-                     dup),
+                     dup, 0, ddp),
         stream, ssq + it, partials, &nb);
     if (err != cudaSuccess) return err;
     power_finalize_kernel<<<1, FIN_NT, 0, stream>>>(partials, nb, ssq + it + 1,
@@ -369,7 +388,7 @@ cudaError_t kron_tiles_matvec_f32(const float* v, const float* d,
                                   const float* dw_val, int wdw, float* out,
                                   int dd, int du, cudaStream_t stream) {
   Args<float> a{v, out, up_idx, up_val, dw_idx, dw_val, d, nullptr,
-                nullptr, nullptr, 0, 0, wup, wdw, dd, du, 0};
+                nullptr, nullptr, 0, 0, wup, wdw, dd, du, 0, 0, dd};
   return launch<float, false>(a, stream);
 }
 

@@ -29,6 +29,7 @@ import numpy as np
 
 from .bath.dmft_bath import save_bath_file
 from .config import EDConfig
+from .parallel.mesh import is_writer
 from .sectors import SectorTable
 from .solver.diag import DiagResult
 from .solver.observables import Observables
@@ -168,6 +169,8 @@ def read_sectors_restart(cfg: EDConfig, table: SectorTable,
 
 def write_xmu_restart(cfg: EDConfig, xmu: float, ndelta: float,
                       path: Optional[str] = None) -> None:
+    if not is_writer():
+        return
     path = path or os.path.join(cfg.ed_output_dir, "xmu.restart")
     with open(path, "w") as fh:
         fh.write(f"{xmu:.12f} {ndelta:.12f}\n")
@@ -183,7 +186,10 @@ def read_xmu_restart(cfg: EDConfig, path: Optional[str] = None):
 
 
 def write_all_outputs(cfg: EDConfig, result) -> None:
-    """Everything ed_solve writes when ed_write_files is on."""
+    """Everything ed_solve writes when ed_write_files is on (on rank 0
+    only, under a process group: every rank holds the same result)."""
+    if not is_writer():
+        return
     os.makedirs(cfg.ed_output_dir, exist_ok=True)
     write_observables(cfg, result.obs)
     if cfg.ed_obs_all:

@@ -567,8 +567,11 @@ def ed_read_umatrix_file(path: str) -> None:
 
 def ed_save_umatrix_file(path: str) -> None:
     """Save the active two-body operator list (reference save_umatrix_file)."""
+    from .parallel.mesh import is_writer
     from .umatrix import save_umatrix_file
     s = _S()
+    if not is_writer():
+        return
     save_umatrix_file(build_umatrix(s.cfg, runtime_terms=s.runtime_terms),
                       path)
 

@@ -56,7 +56,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ops = [p] * 2 + [i] + [p] * 2 + [i] + [p] * 2 + [i] + [p] * 2 + [i] * 3
     for name in ("fused_normal_matvec_f64", "fused_normal_matvec_f32"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 2 + ops + [p]
+        fn.argtypes = [p] * 2 + ops + [i] * 2 + [p]      # + row0, nrows
         fn.restype = i
     fn = lib.fused_normal_power_f32
     fn.argtypes = [p] * 3 + ops + [p] * 3 + [i, p]

@@ -25,6 +25,10 @@ the permuted hop factors (ops.fused_normal.build_fused_normal):
   with the original <-> internal layout conversion.
 * :class:`FusedPower` — B3; each call on the card adds its 2·niter kernel
   launches to ``power_launches``.
+* :class:`ShardedFusedKron` — B1/B2 on a sector whose padded dw rows are
+  split over the ranks of a mesh (parallel.mesh): each rank holds its
+  rows of V3, gathers the whole V3 and computes its own rows of H·V3 (the
+  kernels' row range, ``rows=(row0, nrows)`` of :func:`fused_matvec`).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import DTYPE
+from ..parallel.mesh import Mesh, RowShard
 from . import _build
 from .fused_normal import BLK, FusedNormalOp
 
@@ -88,6 +93,14 @@ class FusedOperands:
                 len(self.runs), self.ddp, self.dup)
 
 
+def _row_range(rows, ops: FusedOperands) -> Tuple[int, int]:
+    row0, nrows = (0, ops.ddp) if rows is None else (int(r) for r in rows)
+    if row0 < 0 or nrows < 0 or row0 + nrows > ops.ddp:
+        raise ValueError(f"fused_matvec: rows {row0}:{row0 + nrows} outside "
+                         f"0:{ops.ddp}")
+    return row0, nrows
+
+
 def _check(v3: torch.Tensor, ops: FusedOperands) -> None:
     if v3.dtype not in _ENTRY:
         raise TypeError(f"fused_matvec: expected float64 or float32, got "
@@ -111,21 +124,29 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fused_matvec(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
+def fused_matvec(v3: torch.Tensor, ops: FusedOperands, rows=None
+                 ) -> torch.Tensor:
     """W3 = H·V3 on the column-blocked layout (nbu*ddp, 128), in v3's dtype
     (float64: B1, float32: B2). Raises for a sector whose one row of V
     does not fit in shared memory (padded up dimension above about 29k in
-    f64, 58k in f32)."""
+    f64, 58k in f32).
+
+    ``rows = (row0, nrows)``: only the rows [row0, row0 + nrows) of the
+    padded dw axis, as a (nbu*nrows, 128) block of the same layout, from
+    the whole V3; each equals the whole product's row bit for bit."""
     global launches, launches_f32
     _check(v3, ops)
+    row0, nrows = _row_range(rows, ops)
     if v3.device.type == "cpu":
-        return fused_matvec_plain(v3, ops)
+        return fused_matvec_plain(v3, ops, rows)
+    w3 = v3.new_empty(ops.nbu * nrows, BLK)
+    if nrows == 0:
+        return w3
     lib = _build.load_library()
     name = _ENTRY[v3.dtype]
-    w3 = torch.empty_like(v3)
     with torch.cuda.device(v3.device):
         err = getattr(lib, name)(v3.data_ptr(), w3.data_ptr(),
-                                 *ops.args(), _stream(v3))
+                                 *ops.args(), row0, nrows, _stream(v3))
     _build.check(lib, err, f"{name} launch")
     if v3.dtype == torch.float64:
         launches += 1
@@ -136,36 +157,52 @@ def fused_matvec(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
 
 def ell_matvec_plain(v2: torch.Tensor, diag: torch.Tensor,
                      up_idx: torch.Tensor, up_val: torch.Tensor,
-                     dw_idx: torch.Tensor, dw_val: torch.Tensor
-                     ) -> torch.Tensor:
+                     dw_idx: torch.Tensor, dw_val: torch.Tensor,
+                     v2_src: torch.Tensor = None) -> torch.Tensor:
     """D⊙V + V·Hupᵀ + Hdw·V on the 2-D (d, u) layout from the ELL tables of
     Hup and Hdw (slot-major, ``fused_normal.ell_table``), one gather per
-    slot, summed in the row-gather kernel's order."""
+    slot, summed in the row-gather kernel's order. ``v2_src``: the whole V
+    the dw gathers read when ``v2``, ``diag`` and the dw tables are a block
+    of its rows (default: ``v2``)."""
+    src = v2 if v2_src is None else v2_src
     w = diag * v2
     for e in range(up_idx.shape[0]):
         w += up_val[e] * v2[:, up_idx[e]]
     for e in range(dw_idx.shape[0]):
-        w += dw_val[e].unsqueeze(1) * v2[dw_idx[e]]
+        w += dw_val[e].unsqueeze(1) * src[dw_idx[e]]
     return w
 
 
-def _add_runs(w2: torch.Tensor, v2: torch.Tensor, ops: FusedOperands
-              ) -> None:
-    """The non-local Jx/Jp terms: rectangle shifts on the 2-D layout."""
+def _add_runs(w2: torch.Tensor, v2: torch.Tensor, ops: FusedOperands,
+              row0: int = 0) -> None:
+    """The non-local Jx/Jp terms: rectangle shifts on the 2-D layout, each
+    clipped to the output rows [row0, row0 + len(w2)) (its source rows
+    anywhere in v2)."""
+    hi = row0 + w2.shape[0]
     for rn in ops.runs:
-        w2[rn.dd0:rn.dd0 + rn.ld, rn.du0:rn.du0 + rn.lu] += \
-            rn.val * v2[rn.sd0:rn.sd0 + rn.ld, rn.su0:rn.su0 + rn.lu]
+        a, b = max(rn.dd0, row0), min(rn.dd0 + rn.ld, hi)
+        if a >= b:
+            continue
+        s = rn.sd0 + a - rn.dd0
+        w2[a - row0:b - row0, rn.du0:rn.du0 + rn.lu] += \
+            rn.val * v2[s:s + b - a, rn.su0:rn.su0 + rn.lu]
 
 
-def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands) -> torch.Tensor:
+def fused_matvec_plain(v3: torch.Tensor, ops: FusedOperands, rows=None
+                       ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_matvec` (same function, in the
-    operands' dtype, from the same tables as the kernel)."""
+    operands' dtype, from the same tables as the kernel; ``rows`` as
+    there, each row computed as the whole product computes it)."""
     nbu, ddp = ops.nbu, ops.ddp
+    row0, nrows = _row_range(rows, ops)
     v2 = v3.view(nbu, ddp, BLK).permute(1, 0, 2).reshape(ddp, nbu * BLK)
-    w2 = ell_matvec_plain(v2, ops.diag_a @ ops.diag_b.T, ops.up_idx,
-                          ops.up_val, ops.dw_idx, ops.dw_val)
-    _add_runs(w2, v2, ops)
-    return w2.view(ddp, nbu, BLK).permute(1, 0, 2).reshape(nbu * ddp, BLK)
+    sl = slice(row0, row0 + nrows)
+    w2 = ell_matvec_plain(v2[sl], (ops.diag_a @ ops.diag_b.T)[sl],
+                          ops.up_idx, ops.up_val, ops.dw_idx[:, sl],
+                          ops.dw_val[:, sl], v2)
+    _add_runs(w2, v2, ops, row0)
+    return w2.view(nrows, nbu, BLK).permute(1, 0, 2).reshape(nbu * nrows,
+                                                             BLK)
 
 
 def fused_power(v3: torch.Tensor, ops: FusedOperands, niter: int
@@ -284,3 +321,31 @@ class FusedPower:
 
     def __call__(self, v3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return fused_power(v3, self.ops, self.niter)
+
+
+class ShardedFusedKron(FusedKron):
+    """:class:`FusedKron` on a sector whose padded dw rows are split over
+    the ranks of ``mesh``: vectors are this rank's rows of the internal
+    layout (``local`` slices a whole one, ``gather`` rebuilds it); a call
+    gathers V3 and launches B1/B2 on this rank's row range."""
+
+    def __init__(self, fop: FusedNormalOp, device: torch.device,
+                 dtype: torch.dtype, mesh: Mesh):
+        super().__init__(fop, device, dtype)
+        self.mesh = mesh
+        self.shard = RowShard(mesh, self.nbu, self.ddp, BLK)
+        self.rows = (self.shard.lo, self.shard.nrows)
+        self.local_dim = self.shard.local_dim
+        self._mask = self.shard.local(self._mask)
+
+    def local(self, v: torch.Tensor) -> torch.Tensor:
+        return self.shard.local(v)
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        return self.shard.gather(v)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        self.n_calls += 1
+        v3 = self.gather(v.to(self.dtype)).reshape(-1, BLK)
+        w = fused_matvec(v3, self.ops, self.rows)
+        return w.reshape(-1).to(v.dtype)

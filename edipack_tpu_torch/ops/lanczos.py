@@ -16,6 +16,13 @@ host):
 
 The recurrence scalars stay on the device inside a sweep, so a sweep
 enqueues its m steps without a host round trip.
+
+Each function takes ``mesh`` (parallel.mesh.Mesh, default None): the
+vectors are then this rank's rows of a sector split over the ranks
+(a sharded operator's ``local`` slices), every sum over the vector axis
+(inner products, norms, reorthogonalization and deflation coefficients)
+is all-reduced, and every host decision reads only all-reduced values, so
+that every rank takes the same branch. Without a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -29,13 +36,41 @@ from ..device import DTYPE
 START_SEED = 17     # seed of the start-vector generator (cf. PRNGKey(17))
 
 
-def _deflate(locked: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return v - (locked.conj() @ v) @ locked
+def _reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the mesh's ranks (``t`` itself without a mesh)."""
+    return t if mesh is None else mesh.allreduce_sum(t)
 
 
-def _vdot_real(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _deflate(locked: torch.Tensor, v: torch.Tensor, mesh=None
+             ) -> torch.Tensor:
+    return v - _reduce(locked.conj() @ v, mesh) @ locked
+
+
+def _vdot_real(a: torch.Tensor, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """Re <a|b> (the Rayleigh quotient of a Hermitian operator is real)."""
-    return torch.vdot(a, b).real
+    return _reduce(torch.vdot(a, b), mesh).real
+
+
+def _norm(v: torch.Tensor, mesh=None) -> torch.Tensor:
+    """‖v‖ over the whole vector."""
+    if mesh is None:
+        return torch.linalg.norm(v)
+    return torch.sqrt(mesh.allreduce_sum(torch.vdot(v, v).real))
+
+
+def _row_norms(w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """‖w[b]‖ of each row of a (B, dim) block."""
+    if mesh is None:
+        return torch.linalg.vector_norm(w, dim=1)
+    return torch.sqrt(mesh.allreduce_sum((w.conj() * w).real.sum(1)))
+
+
+def apply_full(matvec: Callable, v: torch.Tensor) -> torch.Tensor:
+    """H·v on a whole vector (or (B, dim) block) of the operator's layout,
+    for an operator that is split over a mesh (``matvec.mesh``) too."""
+    if getattr(matvec, "mesh", None) is None:
+        return matvec(v)
+    return matvec.gather(matvec(matvec.local(v)))
 
 
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -43,19 +78,19 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _lock(locked_vecs: list, locked_vals: list, vec: torch.Tensor,
-          val: float) -> None:
+          val: float, mesh=None) -> None:
     """Append the Ritz pair (``vec`` deflated against the locked vectors and
     normalized, ``val``) unless nothing of ``vec`` is left."""
     if locked_vecs:
-        vec = _deflate(torch.stack(locked_vecs), vec)
-    nrm = float(torch.linalg.norm(vec))
+        vec = _deflate(torch.stack(locked_vecs), vec, mesh)
+    nrm = float(_norm(vec, mesh))
     if nrm >= 1e-10:
         locked_vecs.append(vec / nrm)
         locked_vals.append(float(val))
 
 
 def lanczos_sweep(matvec: Callable, v0: torch.Tensor, m: int,
-                  locked: Optional[torch.Tensor] = None
+                  locked: Optional[torch.Tensor] = None, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run an m-step Lanczos factorization from ``v0``.
 
@@ -64,10 +99,10 @@ def lanczos_sweep(matvec: Callable, v0: torch.Tensor, m: int,
     converged eigenvectors are projected out of every Krylov vector."""
     dim = v0.shape[0]
     have_locked = locked is not None and locked.shape[0] > 0
-    v = v0 / torch.linalg.norm(v0)
+    v = v0 / _norm(v0, mesh)
     if have_locked:
-        v = _deflate(locked, v)
-        v = v / torch.linalg.norm(v)
+        v = _deflate(locked, v, mesh)
+        v = v / _norm(v, mesh)
     V = torch.zeros(m + 1, dim, dtype=v0.dtype, device=v0.device)
     V[0] = v
     rdtype = real_dtype(v0.dtype)
@@ -78,13 +113,13 @@ def lanczos_sweep(matvec: Callable, v0: torch.Tensor, m: int,
     for i in range(m):
         w = matvec(v)
         if have_locked:
-            w = _deflate(locked, w)
-        alpha = _vdot_real(v, w)
+            w = _deflate(locked, w, mesh)
+        alpha = _vdot_real(v, w, mesh)
         w = w - alpha * v - beta_prev * v_prev
         basis = V[:i + 1]
         for _ in range(2):
-            w = w - (basis.conj() @ w) @ basis
-        beta = torch.linalg.norm(w)
+            w = w - _reduce(basis.conj() @ w, mesh) @ basis
+        beta = _norm(w, mesh)
         v_next = torch.where(beta > 0, w / torch.where(beta > 0, beta, 1.0),
                              torch.zeros_like(w))
         V[i + 1] = v_next
@@ -94,12 +129,12 @@ def lanczos_sweep(matvec: Callable, v0: torch.Tensor, m: int,
     return alphas, betas, V
 
 
-def lanczos_tridiag(matvec: Callable, v0: torch.Tensor, m: int
+def lanczos_tridiag(matvec: Callable, v0: torch.Tensor, m: int, mesh=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Storage-free m-step tridiagonalization (GF moments; no reorth).
 
     Returns (alphas[m], betas[m-1], norm0) where norm0 = |v0|."""
-    norm0 = torch.linalg.norm(v0)
+    norm0 = _norm(v0, mesh)
     v = v0 / torch.where(norm0 > 0, norm0, 1.0)
     rdtype = real_dtype(v0.dtype)
     alphas = torch.zeros(m, dtype=rdtype, device=v0.device)
@@ -108,9 +143,9 @@ def lanczos_tridiag(matvec: Callable, v0: torch.Tensor, m: int
     beta_prev = torch.zeros((), dtype=rdtype, device=v0.device)
     for i in range(m):
         w = matvec(v)
-        alpha = _vdot_real(v, w)
+        alpha = _vdot_real(v, w, mesh)
         w = w - alpha * v - beta_prev * v_prev
-        beta = torch.linalg.norm(w)
+        beta = _norm(w, mesh)
         v_next = torch.where(beta > 0, w / torch.where(beta > 0, beta, 1.0),
                              torch.zeros_like(w))
         alphas[i] = alpha
@@ -119,7 +154,8 @@ def lanczos_tridiag(matvec: Callable, v0: torch.Tensor, m: int
     return alphas, betas[:-1], norm0
 
 
-def lanczos_tridiag_batch(matvec: Callable, v0s: torch.Tensor, m: int
+def lanczos_tridiag_batch(matvec: Callable, v0s: torch.Tensor, m: int,
+                          mesh=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B independent storage-free chains against the same operator
     (edipack_tpu's vmap of :func:`lanczos_tridiag`): each step is one
@@ -129,7 +165,7 @@ def lanczos_tridiag_batch(matvec: Callable, v0s: torch.Tensor, m: int
 
     Returns (alphas (B, m), betas (B, m-1), norm0s (B,))."""
     nb = v0s.shape[0]
-    norm0 = torch.linalg.vector_norm(v0s, dim=1)
+    norm0 = _row_norms(v0s, mesh)
     v = v0s / torch.where(norm0 > 0, norm0, 1.0)[:, None]
     rdtype = real_dtype(v0s.dtype)
     alphas = torch.zeros(nb, m, dtype=rdtype, device=v0s.device)
@@ -138,9 +174,9 @@ def lanczos_tridiag_batch(matvec: Callable, v0s: torch.Tensor, m: int
     beta_prev = torch.zeros(nb, dtype=rdtype, device=v0s.device)
     for i in range(m):
         w = matvec(v)
-        alpha = (v.conj() * w).sum(1).real
+        alpha = _reduce((v.conj() * w).sum(1), mesh).real
         w = w - alpha[:, None] * v - beta_prev[:, None] * v_prev
-        beta = torch.linalg.vector_norm(w, dim=1)
+        beta = _row_norms(w, mesh)
         v_next = torch.where(beta[:, None] > 0,
                              w / torch.where(beta > 0, beta, 1.0)[:, None],
                              torch.zeros_like(w))
@@ -162,7 +198,7 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
                  m: Optional[int] = None, tol: float = 1e-12,
                  max_restarts: int = 60,
                  v0: Optional[np.ndarray | torch.Tensor] = None,
-                 stats: Optional[dict] = None
+                 stats: Optional[dict] = None, mesh=None
                  ) -> Tuple[np.ndarray, torch.Tensor]:
     """``nev`` lowest eigenpairs by restarted deflated Lanczos.
 
@@ -175,20 +211,30 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
     operators with
     ``v0_project`` (padded fused layouts) get their padding zeroed in every
     start vector. ``stats`` is filled with ``n_restarts`` and
-    ``n_matvecs``."""
+    ``n_matvecs``.
+
+    With ``mesh``, ``matvec`` is split over the mesh's ranks (its
+    ``local`` / ``gather``), ``dim`` is the whole sector's, start vectors
+    are drawn (or given) whole and sliced, and the returned evecs are this
+    rank's rows (nev, local dim)."""
     device = matvec.device
     nev = min(nev, dim)
     if stats is None:
         stats = {}
     stats.update(n_restarts=0, n_matvecs=0)
+    if mesh is not None:
+        mesh.agree("eigsh_lowest (dim, nev, m, max_restarts)",
+                   (dim, nev, -1 if m is None else m, max_restarts))
+    local = (lambda v: v) if mesh is None else matvec.local
     if dim <= 128:
         # tiny spaces: materialize H by matvec columns and eigh directly
         stats["n_matvecs"] = dim
         eye = torch.eye(dim, dtype=dtype, device=device)
-        h = torch.stack([matvec(eye[i]) for i in range(dim)], dim=1)
+        h = torch.stack([apply_full(matvec, eye[i]) for i in range(dim)],
+                        dim=1)
         vals, vecs = np.linalg.eigh(h.cpu().numpy())
-        return vals[:nev], torch.as_tensor(np.ascontiguousarray(
-            vecs[:, :nev].T), dtype=dtype, device=device)
+        return vals[:nev], local(torch.as_tensor(np.ascontiguousarray(
+            vecs[:, :nev].T), dtype=dtype, device=device))
     if m is None:
         m = min(dim, max(4 * nev + 24, 48))
     m = min(m, dim)
@@ -199,11 +245,11 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
         if dtype.is_complex:
             v = torch.complex(v, torch.randn(dim, generator=generator,
                                              dtype=torch.float64))
-        return v.to(device=device, dtype=dtype)
+        return local(v.to(device=device, dtype=dtype))
 
     project = getattr(matvec, "v0_project", None)
     v0 = random_start() if v0 is None \
-        else torch.as_tensor(v0, dtype=dtype, device=device)
+        else local(torch.as_tensor(v0, dtype=dtype, device=device))
     if project is not None:
         v0 = project(v0)
 
@@ -211,7 +257,7 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
     start = v0
     for restart in range(max_restarts):
         locked = torch.stack(locked_vecs) if locked_vecs else None
-        alphas, betas, V = lanczos_sweep(matvec, start, m, locked)
+        alphas, betas, V = lanczos_sweep(matvec, start, m, locked, mesh)
         a = alphas.cpu().numpy()
         b = betas.cpu().numpy()
         stats["n_restarts"] += 1
@@ -237,7 +283,7 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
         j_open = n_take          # the first Ritz pair left unconverged
         for j in range(n_take):
             if resids[j] < tol * scale or k_eff >= dim - len(locked_vals):
-                _lock(locked_vecs, locked_vals, ritz[j], tvals[j])
+                _lock(locked_vecs, locked_vals, ritz[j], tvals[j], mesh)
             else:
                 j_open = j
                 break
@@ -250,7 +296,7 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
             start = random_start()
             if project is not None:
                 start = project(start)
-        nrm = torch.linalg.norm(start)
+        nrm = _norm(start, mesh)
         start = start / nrm if float(nrm) > 1e-12 else v0
     else:
         # at the restart cap, accept the last sweep's unconverged Ritz pairs
@@ -258,7 +304,7 @@ def eigsh_lowest(matvec: Callable, dim: int, nev: int,
         for j in range(j_open, n_take):
             if len(locked_vals) >= nev:
                 break
-            _lock(locked_vecs, locked_vals, ritz[j], tvals[j])
+            _lock(locked_vecs, locked_vals, ritz[j], tvals[j], mesh)
 
     order = np.argsort(locked_vals[:nev])
     vals = np.asarray(locked_vals)[order]

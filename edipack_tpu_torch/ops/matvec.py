@@ -18,6 +18,19 @@ Each of these operators takes a flat vector (dim,) or a (B, dim) block of
 B vectors in one call (``batched``; ``n_calls`` counts calls, not rows):
 the GF chains into one target sector run through it together
 (ops.lanczos.lanczos_tridiag_batch).
+
+Split over the ranks of a mesh (parallel.mesh; the JAX package's
+``shard_kron_matvec`` / ``shard_joint_matvec``):
+
+* :class:`ShardedKronMatvec` — the dw rows of V[ph, dw, up]: ``V·Hupᵀ``
+  and the phonon-axis terms stay local, ``Hdw[rows]·V`` and the non-local
+  terms read the gathered V;
+* :class:`ShardedJointMatvec` — the electronic rows of the padded-ELL
+  tables (and of the e-ph ELL); v is gathered before the contraction, the
+  phonon operators stay whole.
+
+Their vectors are this rank's rows (``local`` slices a whole vector or
+block, ``gather`` rebuilds it; ``dim`` stays the whole sector's).
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ import torch
 from ..device import DTYPE
 from ..models.joint import JointSectorOp
 from ..models.normal import NormalSectorOp
+from ..parallel.mesh import Mesh, RowShard
 
 CDTYPE = torch.complex128
 # elements of the gathered (rows, K) / (terms,) temporaries of the joint
@@ -73,16 +87,20 @@ class NonLocal:
             else:
                 self.dense = (put(op.nl_b), put(np.swapaxes(op.nl_a, 1, 2)))
 
-    def add_to(self, out: torch.Tensor, v: torch.Tensor) -> None:
-        """out += Σ_k B_k@V@A_kᵀ on the (..., DimPh, DimDw, DimUp) form."""
+    def add_to(self, out: torch.Tensor, v: torch.Tensor, rows=None) -> None:
+        """out += Σ_k B_k@V@A_kᵀ on the (..., DimPh, DimDw, DimUp) form;
+        ``rows = (lo, hi)``: only those dw rows of it (``out``'s), from the
+        whole ``v``."""
+        r = slice(None) if rows is None else slice(*rows)
         if self.perm is not None:
             src_a, sgn_a, src_b, sgn_b = self.perm
             for k in range(src_a.shape[0]):
-                t = v.index_select(-2, src_b[k]).index_select(-1, src_a[k])
-                out += t * (sgn_b[k][:, None] * sgn_a[k][None, :])
+                t = v.index_select(-2, src_b[k][r]).index_select(-1, src_a[k])
+                out += t * (sgn_b[k][r, None] * sgn_a[k][None, :])
         elif self.dense is not None:
             nl_b, nl_at = self.dense
-            out += torch.einsum("kde,...peu,kuv->...pdv", nl_b, v, nl_at)
+            out += torch.einsum("kde,...peu,kuv->...pdv", nl_b[:, r], v,
+                                nl_at)
 
     def to(self, dtype: torch.dtype) -> "NonLocal":
         out = NonLocal.__new__(NonLocal)
@@ -147,27 +165,58 @@ class KronMatvec:
                                                    for t in self.ph))
         return self._promoted[dtype]
 
-    def apply3(self, v: torch.Tensor) -> torch.Tensor:
-        """Matvec on the (..., DimPh, DimDw, DimUp) tensor form."""
+    def apply3(self, v: torch.Tensor, rows=None, full=None) -> torch.Tensor:
+        """Matvec on the (..., DimPh, DimDw, DimUp) tensor form; with
+        ``rows = (lo, hi)``, ``v`` and the result are those dw rows and
+        ``full`` the whole V that the dw hops and non-local terms read."""
         dtype = torch.promote_types(v.dtype, self.dtype)
         v = v.to(dtype)
+        full = v if full is None else full.to(dtype)
+        r = slice(None) if rows is None else slice(*rows)
         d, hup_t, hdw, nl, ph = self._operands(dtype)
-        out = d * v
+        out = d[..., r, :] * v
         out += v @ hup_t
-        out += torch.matmul(hdw, v)
-        nl.add_to(out, v)
+        out += torch.matmul(hdw[r], full)
+        nl.add_to(out, full, rows)
         if ph is not None:
             ph_mat, ph_x, eph_d, eph_up_t, eph_dw = ph
             out += torch.einsum("pq,...qdu->...pdu", ph_mat, v)
-            ev = eph_d * v + v @ eph_up_t + torch.matmul(eph_dw, v)
+            ev = eph_d[..., r, :] * v + v @ eph_up_t \
+                + torch.matmul(eph_dw[r], full)
             out += torch.einsum("pq,...qdu->...pdu", ph_x, ev)
         return out
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
         lead = v.shape[:-1]
-        return self.apply3(v.reshape(*lead, *self.shape3)).reshape(
-            *lead, self.dim)
+        ph, _, nu = self.shape3
+        return self.apply3(v.reshape(*lead, ph, -1, nu)).reshape(*lead, -1)
+
+
+class ShardedKronMatvec(KronMatvec):
+    """:class:`KronMatvec` with the dw axis split over the ranks of
+    ``mesh``; takes and returns this rank's rows of V[ph, dw, up] (a flat
+    vector or a (B, local dim) block)."""
+
+    def __init__(self, op: NormalSectorOp, device: torch.device,
+                 dtype: torch.dtype, mesh: Mesh):
+        super().__init__(op, device, dtype)
+        self.mesh = mesh
+        ph, nd, nu = self.shape3
+        self.shard = RowShard(mesh, ph, nd, nu)
+        self.local_dim = self.shard.local_dim
+
+    def local(self, v: torch.Tensor) -> torch.Tensor:
+        return self.shard.local(v)
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        return self.shard.gather(v)
+
+    def apply3(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the matvec on the (..., DimPh, rows, DimUp)
+        form, from the gathered V."""
+        full = self.mesh.all_gather_rows(v, self.shape3[1], axis=-2)
+        return super().apply3(v, (self.shard.lo, self.shard.hi), full)
 
 
 class EllMatvec:
@@ -176,15 +225,18 @@ class EllMatvec:
 
     Rows are padded to a fixed K with (col=i, val=0) entries; ``cols`` is
     int32. The rows are taken in chunks of ``CHUNK_ELEMS // (K * batch)``
-    so that the gathered (batch, rows, K) temporary stays bounded."""
+    so that the gathered (batch, rows, K) temporary stays bounded.
+    ``n_in``: the length of the input's last axis when the tables are a
+    block of rows of a larger matrix (default: square)."""
 
     batched = True
 
     def __init__(self, cols: np.ndarray, vals: np.ndarray,
                  device: torch.device, dtype: torch.dtype = CDTYPE,
-                 nnz: int = None):
+                 nnz: int = None, n_in: int = None):
         assert cols.shape == vals.shape and cols.ndim == 2
         self.dim, self.k = cols.shape
+        self.n_in = self.dim if n_in is None else n_in
         self.dtype = dtype
         self.device = device
         self.cols = torch.as_tensor(np.asarray(cols, np.int32), device=device)
@@ -196,8 +248,8 @@ class EllMatvec:
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         """out over the last axis of ``v`` (..., dim)."""
         lead = v.shape[:-1]
-        v2 = v.reshape(-1, self.dim)
-        out = torch.empty_like(v2)
+        v2 = v.reshape(-1, self.n_in)
+        out = v2.new_empty(v2.shape[0], self.dim)
         step = max(1, CHUNK_ELEMS // (self.k * v2.shape[0]))
         for lo in range(0, self.dim, step):
             hi = min(self.dim, lo + step)
@@ -255,30 +307,40 @@ class _JointBase:
     def eph(self, v2: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def source(self, v2: torch.Tensor) -> torch.Tensor:
+        """The whole electronic axis that the electronic terms read (``v2``
+        itself; a row-split operator gathers it)."""
+        return v2
+
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
         lead = v.shape[:-1]
-        v2 = v.reshape(*lead, self.dim_ph, self.dim_el).to(self.dtype)
-        out = self.electronic(v2)
+        v2 = v.reshape(*lead, self.dim_ph, -1).to(self.dtype)
+        src = self.source(v2)
+        out = self.electronic(src)
         if self.has_ph:
             out += self.ph_mat @ v2
-            out += self.ph_x @ self.eph(v2)
-        return out.reshape(*lead, self.dim)
+            out += self.ph_x @ self.eph(src)
+        return out.reshape(*lead, -1)
 
 
 class JointMatvec(_JointBase):
     """superc/nonsu2 sector matvec: the padded-ELL electronic H (diagonal
     included) batched over the phonon axis, plus the phonon and
     electron-phonon Kronecker terms (the e-ph electronic matrix as ELL
-    tables of its own). ``v`` is flat (DimPh * DimEl)."""
+    tables of its own). ``v`` is flat (DimPh * DimEl). ``rows = (lo,
+    hi)``: only those electronic rows of the tables, read from the whole
+    electronic axis."""
 
-    def __init__(self, op: JointSectorOp, device: torch.device):
+    def __init__(self, op: JointSectorOp, device: torch.device, rows=None):
         super().__init__(op, device)
+        r = slice(None) if rows is None else slice(*rows)
         cols, vals = op.ell()
-        self.ell = EllMatvec(cols, vals, device)
+        self.ell = EllMatvec(cols[r], vals[r], device, n_in=self.dim_el)
         if self.has_ph:
             ecols, evals = _eph_op(op).ell()
-            self.eph_ell = EllMatvec(ecols, evals, device)
+            self.eph_ell = EllMatvec(ecols[r], evals[r], device,
+                                     n_in=self.dim_el)
 
     @property
     def k(self) -> int:
@@ -327,3 +389,26 @@ class JointMatvecDirect(_JointBase):
         out = self.eph_diag * v2
         self._scatter(out, v2, self.eph_coo)
         return out
+
+
+class ShardedJointMatvec(JointMatvec):
+    """:class:`JointMatvec` with its electronic rows split over the ranks
+    of ``mesh`` (the JAX package's ``shard_joint_matvec``): this rank keeps
+    its block of rows of the ELL tables (and of the e-ph ELL), gathers v and
+    contracts; ph_mat and ph_x act on the phonon axis and stay whole.
+    Takes and returns this rank's rows of v[ph, el]."""
+
+    def __init__(self, op: JointSectorOp, device: torch.device, mesh: Mesh):
+        shard = RowShard(mesh, op.sector.dim_ph, op.dim_el, 1)
+        super().__init__(op, device, rows=(shard.lo, shard.hi))
+        self.mesh, self.shard = mesh, shard
+        self.local_dim = shard.local_dim
+
+    def local(self, v: torch.Tensor) -> torch.Tensor:
+        return self.shard.local(v)
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        return self.shard.gather(v)
+
+    def source(self, v2: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_gather_rows(v2, self.dim_el, axis=-1)

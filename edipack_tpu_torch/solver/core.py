@@ -15,6 +15,13 @@ Routing of a sector's matvec (``ed_fused_matvec``), in the working dtype
   * ``never``  — KronMatvec.
 The GF and susceptibility chains use the same operator (in the fused
 internal layout).
+
+Multi-GPU (parallel.mesh): under an initialized process group of more than
+one rank, every rank runs the same solve; a sector of dim >
+4·lanc_dim_threshold whose dw dimension the world size divides (the JAX
+package's rule) is split over the ranks by its dw rows — through B1/B2 on
+a row range where the fused route applies, else ShardedKronMatvec — and
+the dense buckets are shared. Every rank returns the same result.
 """
 from __future__ import annotations
 
@@ -32,9 +39,10 @@ from ..bath.functions import (delta_bath, fdelta_bath, g0and_bath,
 from ..config import EDConfig
 from ..device import DTYPE, PhaseTimer, working_dtype
 from ..models.normal import NormalSectorOp, build_normal_sector_op
-from ..ops.fused_matvec import FusedKron
+from ..ops.fused_matvec import FusedKron, ShardedFusedKron
 from ..ops.fused_normal import build_fused_normal
-from ..ops.matvec import KronMatvec
+from ..ops.matvec import KronMatvec, ShardedKronMatvec
+from ..parallel.mesh import make_mesh, shard_normal
 from ..sectors import Sector, SectorTable
 from ..umatrix import Umatrix
 from .diag import DiagResult, diagonalize, diagonalize_sites
@@ -203,10 +211,21 @@ class SolveResult:
         return self.diag.e0
 
 
+def _solve_mesh(cfg: EDConfig, device: torch.device):
+    """The mesh of the solve (parallel.mesh.make_mesh), or None; printed
+    at ed_verbose >= 2."""
+    mesh = make_mesh(device)
+    if mesh is not None and cfg.ed_verbose >= 2:
+        print(f"[edipack_tpu_torch] {mesh}")
+    return mesh
+
+
 def _normal_builders(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
-                     um: Umatrix, bath: DmftBath, device: torch.device):
+                     um: Umatrix, bath: DmftBath, device: torch.device,
+                     mesh=None):
     """Operator / matvec builders of the normal-mode solve (cached per
-    sector)."""
+    sector); with ``mesh``, the sectors :func:`shard_normal` selects are
+    split over its ranks."""
     dtype = working_dtype(cfg)
     op_cache: Dict[int, NormalSectorOp] = {}
     mv_cache: Dict[int, object] = {}
@@ -218,7 +237,7 @@ def _normal_builders(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                                                          bath)
         return op_cache[sec.index]
 
-    def _try_fused(sec: Sector) -> Optional[FusedKron]:
+    def _try_fused(sec: Sector, shard: bool) -> Optional[FusedKron]:
         mode = cfg.ed_fused_matvec
         if mode == "never":
             return None
@@ -226,13 +245,20 @@ def _normal_builders(cfg: EDConfig, table: SectorTable, hloc: np.ndarray,
                                or sec.dim < FUSED_MIN_DIM):
             return None
         fop = build_fused_normal(get_op(sec), cfg.norb)
-        return None if fop is None else FusedKron(fop, device, dtype=dtype)
+        if fop is None:
+            return None
+        if shard:
+            return ShardedFusedKron(fop, device, dtype, mesh)
+        return FusedKron(fop, device, dtype=dtype)
 
     def matvec_builder(sec: Sector):
         if sec.index not in mv_cache:
-            mv = _try_fused(sec)
+            shard = mesh is not None and shard_normal(
+                sec.dim, sec.dim_dw, cfg.lanc_dim_threshold, mesh.world)
+            mv = _try_fused(sec, shard)
             if mv is None:
-                mv = KronMatvec(get_op(sec), device, dtype=dtype)
+                mv = ShardedKronMatvec(get_op(sec), device, dtype, mesh) \
+                    if shard else KronMatvec(get_op(sec), device, dtype=dtype)
             if cfg.ed_verbose >= 4:
                 print(f"[edipack_tpu_torch:DEBUG] sector {sec.index} "
                       f"dim={sec.dim} (dw={sec.dim_dw}, up={sec.dim_up}, "
@@ -318,14 +344,16 @@ def solve_impurity_sites(cfg: EDConfig, hlocs, ums, baths,
             raise ValueError("solve_impurity_sites: sites must share the "
                              "sector structure")
     table = SectorTable(cfg)
+    mesh = _solve_mesh(cfg, device)
     builders = [_normal_builders(cfgs[s], table, hlocs[s], ums[s], baths[s],
-                                 device) for s in range(nsites)]
+                                 device, mesh) for s in range(nsites)]
     timer = PhaseTimer(device, verbose=cfg.ed_verbose)
     with timer.phase("diagonalization"):
         diags = diagonalize_sites(
             cfg, table, [b.matvec_builder for b in builders],
             [b.dense_builder for b in builders], device,
-            neigen_overrides=neigen_overrides, sector_masks=sector_masks)
+            neigen_overrides=neigen_overrides, sector_masks=sector_masks,
+            mesh=mesh)
     out = []
     for s in range(nsites):
         site_timer = PhaseTimer(device)
@@ -353,11 +381,12 @@ def solve_impurity(cfg: EDConfig, hloc: np.ndarray, um: Umatrix,
     timer = PhaseTimer(device, verbose=cfg.ed_verbose,
                        trace_dir=cfg.ed_profile_dir)
     table = SectorTable(cfg)
-    b = _normal_builders(cfg, table, hloc, um, bath, device)
+    mesh = _solve_mesh(cfg, device)
+    b = _normal_builders(cfg, table, hloc, um, bath, device, mesh)
     with timer:     # the solve's trace, where a trace directory is set
         with timer.phase("diagonalization"):
             diag = diagonalize(cfg, table, b.matvec_builder, b.dense_builder,
                                device, neigen_override=neigen_override,
-                               sector_mask=sector_mask)
+                               sector_mask=sector_mask, mesh=mesh)
         return _finish_normal_site(cfg, table, b, diag, hloc, um, bath,
                                    device, flag_gf, timer)

@@ -10,7 +10,9 @@ Routing of a sector's matvec (as edipack_tpu's off-TPU branch):
   * else ``ed_joint_kron="always"`` — JointKronMatvec (blocked Kron) for Sz
     and Ntot sectors;
   * else                          — JointMatvec (padded ELL), which is what
-    ``"auto"`` means off the TPU.
+    ``"auto"`` means off the TPU; under a mesh of ranks (parallel.mesh),
+    ShardedJointMatvec for a sector of dim > 4·lanc_dim_threshold (the JAX
+    package's rule; the direct and blocked-Kron routes are not split).
 
 GF channel bookkeeping (GFMatrix keys):
   superc: ('g',a,a) up-diag, ('barg',a) dw-diag (Nambu 22), ('gaux',a,b)
@@ -36,7 +38,8 @@ from ..device import PhaseTimer
 from ..fock import occupations
 from ..models.joint import (JointSectorOp, JointTermAccumulator,
                             build_joint_sector_op)
-from ..ops.matvec import JointMatvec, JointMatvecDirect
+from ..ops.matvec import JointMatvec, JointMatvecDirect, ShardedJointMatvec
+from ..parallel.mesh import shard_joint
 from ..ops.sector_ops import joint_op
 from ..sectors import Sector, SectorTable
 from ..umatrix import SPIN_UP, SPIN_DW, Umatrix
@@ -580,7 +583,8 @@ def compute_observables_joint(cfg: EDConfig, table: SectorTable, sl: StateList,
 
 
 def joint_builders(cfg: EDConfig, table: SectorTable, hloc, um: Umatrix,
-                   bath: DmftBath, device: torch.device, hloc_anomalous=None):
+                   bath: DmftBath, device: torch.device, hloc_anomalous=None,
+                   mesh=None):
     """Operator / matvec builders of a joint-mode solve (cached per
     sector); see the module docstring for the routing."""
     op_cache: Dict[int, JointSectorOp] = {}
@@ -602,6 +606,9 @@ def joint_builders(cfg: EDConfig, table: SectorTable, hloc, um: Umatrix,
                 from ..models.joint_kron import build_joint_kron_op
                 mv = build_joint_kron_op(cfg, sec, hloc, um, bath, device,
                                          hloc_anomalous=hloc_anomalous)
+            elif mesh is not None and shard_joint(sec.dim,
+                                                  cfg.lanc_dim_threshold):
+                mv = ShardedJointMatvec(get_op(sec), device, mesh)
             else:
                 mv = JointMatvec(get_op(sec), device)
             if cfg.ed_verbose >= 4:
@@ -636,14 +643,16 @@ def solve_impurity_joint(cfg: EDConfig, hloc, um: Umatrix, bath: DmftBath,
                          device: torch.device, neigen_override=None,
                          sector_mask=None, hloc_anomalous=None,
                          flag_gf: bool = True):
-    from .core import SolveResult
+    from .core import SolveResult, _solve_mesh
     table = SectorTable(cfg)
-    b = joint_builders(cfg, table, hloc, um, bath, device, hloc_anomalous)
+    mesh = _solve_mesh(cfg, device)
+    b = joint_builders(cfg, table, hloc, um, bath, device, hloc_anomalous,
+                       mesh)
     timer = PhaseTimer(device, verbose=cfg.ed_verbose)
     with timer.phase("diagonalization"):
         diag = diagonalize(cfg, table, b.matvec_builder, b.dense_builder,
                            device, neigen_override=neigen_override,
-                           sector_mask=sector_mask)
+                           sector_mask=sector_mask, mesh=mesh)
     gf = GFMatrix()
     if flag_gf:
         with timer.phase("greens_functions"):

@@ -19,6 +19,13 @@ diagonalize:
 Retained eigenvectors stay on the solve's device, in the dtype that gave
 them (dense buckets f64, or complex128 when a sector's H is complex, as in
 edipack_tpu).
+
+Over a mesh of ranks (parallel.mesh, ``mesh=``): each rank diagonalizes
+its share of every bucket chunk and an all-gather returns every eigenpair
+to every rank (edipack_tpu.solver.diag's sharded buckets); a sector whose
+operator is split over the mesh runs its Lanczos on its rows, and each
+kept state is gathered whole on every rank, so that everything after the
+sweep runs as without a mesh.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import torch
 from ..config import EDConfig
 from ..device import working_dtype
 from ..fock import popcount
-from ..ops.lanczos import batched_eigh, eigsh_lowest
+from ..ops.lanczos import apply_full, batched_eigh, eigsh_lowest
 from ..sectors import Sector, SectorTable
 from .eigenspace import EigenState, StateList
 
@@ -98,10 +105,14 @@ def _sanitize_mv(i: int, mv) -> None:
         if mv.dtype.is_complex:
             x = x + 1j * rng.normal(size=mv.dim)
         v = torch.as_tensor(x, dtype=mv.dtype, device=mv.device)
-        return proj(v) if proj is not None else v
+        if proj is None:
+            return v
+        if getattr(mv, "mesh", None) is None:
+            return proj(v)
+        return mv.gather(proj(mv.local(v)))
 
     u, v = rand_vec(), rand_vec()
-    hu, hv = mv(u), mv(v)
+    hu, hv = apply_full(mv, u), apply_full(mv, v)
     scale = float(torch.linalg.norm(u) * torch.linalg.norm(hv)
                   + torch.linalg.norm(hu) * torch.linalg.norm(v)) + 1e-30
     defect = abs(complex(torch.vdot(u, hv) - torch.vdot(hu, v))) / scale
@@ -122,9 +133,10 @@ def _dense_buckets(cfg: EDConfig, table: SectorTable,
                    items: List[Tuple[int, int]], dense_builders: Sequence,
                    neigen: np.ndarray, sls: List[StateList],
                    evals_by_sector: List[Dict[int, np.ndarray]],
-                   device: torch.device) -> None:
+                   device: torch.device, mesh=None) -> None:
     """Diagonalize the (site, sector) pairs of ``items``: every site's
-    sectors join the same power-of-two buckets, one batched eigh each."""
+    sectors join the same power-of-two buckets, one batched eigh each
+    (with ``mesh``, :func:`_shared_eigh`)."""
     buckets: Dict[int, List[Tuple[int, int]]] = {}
     for s, i in items:
         buckets.setdefault(_pad_pow2_bucket(table.get_dim(i)),
@@ -155,7 +167,9 @@ def _dense_buckets(cfg: EDConfig, table: SectorTable,
                 # push padding levels far above this matrix's spectrum
                 pad = np.abs(h).sum() + 1.0
                 mats[bi, d:, d:] = np.eye(bsize - d) * pad if bsize > d else 0.0
-            evals, evecs = batched_eigh(torch.as_tensor(mats, device=device))
+            hmats = torch.as_tensor(mats, device=device)
+            evals, evecs = batched_eigh(hmats) if mesh is None \
+                or len(chunk) < 2 else _shared_eigh(hmats, mesh)
             evals = evals.cpu().numpy()
             for bi, (s, i) in enumerate(chunk):
                 d = dims[bi]
@@ -167,6 +181,26 @@ def _dense_buckets(cfg: EDConfig, table: SectorTable,
                 keep = min(d, max(neigen[s, i], n_deg, 1))
                 for j in range(keep):
                     sls[s].add(EigenState(float(ev[j]), i, evecs[bi, :d, j]))
+
+
+def _shared_eigh(mats: torch.Tensor, mesh) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """:func:`batched_eigh` of a chunk shared by the ranks: the chunk is
+    padded with identity matrices to a multiple of the world size (as
+    edipack_tpu/solver/diag.py:156-160 pads), each rank diagonalizes its
+    contiguous share, and an all-gather returns every eigenpair."""
+    nb, bsize = mats.shape[0], mats.shape[1]
+    mesh.agree("a dense bucket chunk (count, size)", (nb, bsize))
+    per = -(-nb // mesh.world)
+    pad = per * mesh.world - nb
+    if pad:
+        eye = torch.eye(bsize, dtype=mats.dtype, device=mats.device)
+        mats = torch.cat([mats, eye.expand(pad, bsize, bsize)])
+    lo = mesh.rank * per
+    evals, evecs = batched_eigh(mats[lo:lo + per])
+    evals = mesh.all_gather(evals).reshape(-1, bsize)[:nb]
+    evecs = mesh.all_gather(evecs).reshape(-1, bsize, bsize)[:nb]
+    return evals, evecs
 
 
 def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
@@ -187,9 +221,12 @@ def _lanczos_solve_sector(cfg: EDConfig, table: SectorTable, i: int,
         m = min(mv.dim, max(m, min(cfg.lanc_niter, 512)))
     cap = max(4, cfg.lanc_niter // m)
     stats: dict = {}
+    mesh = getattr(mv, "mesh", None)
     vals, vecs = eigsh_lowest(mv, mv.dim, nev, dtype=mv.dtype, m=m,
                               tol=max(cfg.lanc_tolerance, 1e-14),
-                              max_restarts=cap, stats=stats)
+                              max_restarts=cap, stats=stats, mesh=mesh)
+    if mesh is not None:
+        vecs = mv.gather(vecs)      # every kept state whole on every rank
     if sanitize_enabled(cfg):
         _sanitize_spectrum(i, vals)
     evals_by_sector[i] = vals
@@ -351,8 +388,8 @@ def diagonalize_sites(cfg: EDConfig, table: SectorTable,
                       dense_builders: Sequence[Callable[[Sector], np.ndarray]],
                       device: torch.device,
                       neigen_overrides: Optional[Sequence] = None,
-                      sector_masks: Optional[Sequence] = None
-                      ) -> List[DiagResult]:
+                      sector_masks: Optional[Sequence] = None,
+                      mesh=None) -> List[DiagResult]:
     """Sweep every (site, sector) pair; one DiagResult per site.
 
     The sites share the sector structure (``table``) and the solver knobs
@@ -368,6 +405,8 @@ def diagonalize_sites(cfg: EDConfig, table: SectorTable,
 
     ``matvec_builders[s](sec)``: device matvec callable with .dim/.device
     ``dense_builders[s](sec)``: dense sector H (dim <= lanc_dim_threshold)
+    ``mesh``: the ranks that share the dense buckets (their builders
+    split the sectors they choose)
     """
     nsites = len(dense_builders)
     nsec = len(table)
@@ -395,7 +434,7 @@ def diagonalize_sites(cfg: EDConfig, table: SectorTable,
              else lanc_items).append((s, i))
 
     _dense_buckets(cfg, table, dense_items, dense_builders, neigen, sls,
-                   evals_by_sector, device)
+                   evals_by_sector, device, mesh)
 
     sector_times: List[Tuple] = []
     lanczos_stats: List[Dict[int, Tuple[int, int, int]]] = [
@@ -432,7 +471,8 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
                 dense_builder: Callable[[Sector], np.ndarray],
                 device: torch.device,
                 neigen_override: Optional[np.ndarray] = None,
-                sector_mask: Optional[np.ndarray] = None) -> DiagResult:
+                sector_mask: Optional[np.ndarray] = None,
+                mesh=None) -> DiagResult:
     """Sweep every sector of ``table`` (T = 0 or, with ed_finite_temp, the
     thermal window), or those of ``sector_mask`` (the ed_sectors restart,
     io.read_sectors_restart): the one-site specialization of
@@ -443,4 +483,4 @@ def diagonalize(cfg: EDConfig, table: SectorTable,
     """
     return diagonalize_sites(cfg, table, [matvec_builder], [dense_builder],
                              device, neigen_overrides=[neigen_override],
-                             sector_masks=[sector_mask])[0]
+                             sector_masks=[sector_mask], mesh=mesh)[0]

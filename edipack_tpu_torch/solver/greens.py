@@ -11,7 +11,9 @@ Lanczos tridiagonalization of a large one gives Källén-Lehmann
 weights/poles. |φ> keeps its state's dtype (f32 for a Lanczos state of an
 ``ed_precision="float32"`` solve, f64 for a dense-bucket state); each chain
 runs in that dtype through the target sector's operator, which promotes or
-casts as its edipack_tpu counterpart does.
+casts as its edipack_tpu counterpart does. Through an operator split over
+a mesh of ranks (``matvec.mesh``), |φ> is built whole on every rank from
+the whole state and its chain runs on this rank's rows of it.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from ..bath.functions import _block_inv
 from ..config import EDConfig
-from ..ops.lanczos import lanczos_tridiag, lanczos_tridiag_batch
+from ..ops.lanczos import (apply_full, lanczos_tridiag,
+                           lanczos_tridiag_batch)
 from ..ops.sector_ops import spin_axis_op
 from ..sectors import Sector, SectorTable
 from .eigenspace import StateList
@@ -131,10 +134,11 @@ def _moments_from_phi(matvec, phi: torch.Tensor, m: int, dense_eig=None):
         # tiny target sector: exact moments via the materialized H
         eye = torch.eye(dim, dtype=phi.dtype, device=phi.device)
         if fused:
-            cols = [matvec.from_internal_flat(matvec(
-                matvec.to_internal_flat(eye[i]))) for i in range(dim)]
+            cols = [matvec.from_internal_flat(apply_full(
+                matvec, matvec.to_internal_flat(eye[i])))
+                for i in range(dim)]
         else:
-            cols = [matvec(eye[i]) for i in range(dim)]
+            cols = [apply_full(matvec, eye[i]) for i in range(dim)]
         h = torch.stack(cols, dim=1).cpu().numpy()
         return _dense_moments(h, phi.cpu().numpy())
     m = max(2, m)
@@ -142,7 +146,10 @@ def _moments_from_phi(matvec, phi: torch.Tensor, m: int, dense_eig=None):
         # fused matvec: the Krylov chain runs in the padded internal
         # layout (a norm-preserving permutation + padding)
         phi = matvec.to_internal_flat(phi)
-    alphas, betas, norm0 = lanczos_tridiag(matvec, phi, m)
+    mesh = getattr(matvec, "mesh", None)
+    if mesh is not None:
+        phi = matvec.local(phi)
+    alphas, betas, norm0 = lanczos_tridiag(matvec, phi, m, mesh)
     return _tridiag_moments(alphas.cpu().numpy(), betas.cpu().numpy(),
                             float(norm0), m)
 
@@ -187,7 +194,12 @@ def _moments_from_phis(matvec, phis: List[torch.Tensor], m: int):
         if to_internal is not None:
             chunk = [to_internal(p) for p in chunk]
         v0s = torch.stack(chunk)    # mixed dtypes promote, as in jnp.stack
-        alphas, betas, norm0s = lanczos_tridiag_batch(matvec, v0s, m)
+        mesh = getattr(matvec, "mesh", None)
+        if mesh is None:
+            alphas, betas, norm0s = lanczos_tridiag_batch(matvec, v0s, m)
+        else:
+            alphas, betas, norm0s = lanczos_tridiag_batch(
+                matvec, matvec.local(v0s), m, mesh=mesh)
         a, b = alphas.cpu().numpy(), betas.cpu().numpy()
         n0 = norm0s.cpu().numpy()
         out.extend(_tridiag_moments(a[i], b[i], float(n0[i]), m)

@@ -15,6 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..config import EDConfig
+from ..parallel.mesh import is_writer
 
 
 @dataclass
@@ -88,13 +89,14 @@ def search_variable(cfg: EDConfig, var: float, ntmp: float, converged: bool):
 
     var = var + st.nindex * st.ndelta
 
-    try:
-        with open(os.path.join(cfg.ed_output_dir,
-                               "search_mu_iteration"
-                               + cfg.ed_file_suffix + ".ed"), "a") as fh:
-            fh.write(f"{var:.12f} {ntmp:.12f} {ndiff:.12e}\n")
-    except OSError:
-        pass
+    if is_writer():
+        try:
+            with open(os.path.join(cfg.ed_output_dir,
+                                   "search_mu_iteration"
+                                   + cfg.ed_file_suffix + ".ed"), "a") as fh:
+                fh.write(f"{var:.12f} {ntmp:.12f} {ndiff:.12e}\n")
+        except OSError:
+            pass
 
     # threshold-ladder annealing (:1470-1486): once converged within the
     # current (coarser) threshold, tighten it one decade and force another
@@ -113,11 +115,13 @@ def search_variable(cfg: EDConfig, var: float, ntmp: float, converged: bool):
         st.ireduce = False
         st.nth = 10.0 ** st.nth_magnitude_old
 
-    try:
-        with open(os.path.join(cfg.ed_output_dir, "xmu.restart"), "w") as fh:
-            fh.write(f"{var:.12f} {st.ndelta:.12e}\n")
-    except OSError:
-        pass
+    if is_writer():
+        try:
+            with open(os.path.join(cfg.ed_output_dir, "xmu.restart"),
+                      "w") as fh:
+                fh.write(f"{var:.12f} {st.ndelta:.12e}\n")
+        except OSError:
+            pass
     return var, converged
 
 

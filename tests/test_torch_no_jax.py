@@ -26,7 +26,7 @@ import edipack_tpu_torch.ineq, edipack_tpu_torch.capihelp
 import edipack_tpu_torch.compat, edipack_tpu_torch.capi.build
 import edipack_tpu_torch.device, edipack_tpu_torch.solver.greens
 import edipack_tpu_torch.ops.lanczos, edipack_tpu_torch.profile_solve
-import edipack_tpu_torch.examples.c.build
+import edipack_tpu_torch.examples.c.build, edipack_tpu_torch.parallel.mesh
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "edipack_tpu"))
 print(",".join(bad))
