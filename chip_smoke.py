@@ -13,7 +13,11 @@ printed and its report read once the main phases are done, and its
 failure fails the run. Every kernel time of the kernel report is taken
 before it starts:
   build   build the CUDA kernels from csrc/ (one nvcc per source, started
-          together) and print nvcc's register report of each kernel
+          together) and print nvcc's register report of each kernel; (f)
+          the native host library (edipack_tpu_torch/native, g++): whether
+          it runs, its enumeration of config 3's registers against
+          NumPy's (EDIPACK_TPU_TORCH_NO_NATIVE=1), and the enumeration's
+          share of config 3's largest joint host build
   kernel  every kernel against its plain PyTorch version, with CUDA-event
           times of both and of the PyTorch yardsticks (cuSPARSE CSR factors
           for all four, dense GEMMs for B4 too), each timed twice: with the
@@ -113,9 +117,21 @@ before it starts:
           (largest sector 853,776 states, through B1 row ranges; one
           level a sector, twin sectors rebuilt) through ed_solve on the
           ranks against the unsharded solve of this process: e0 1e-10,
-          dens, docc, G 1e-8, B1 launches > 0 on each rank. The ranks'
-          results come back through a temporary directory under build/;
-          a rank that fails or outlives MESH_TIMEOUT fails the phase
+          dens, docc, G 1e-8, B1 launches > 0 on each rank; (d) BASELINE
+          config 3 (superc, largest sector Sz=0 184,756 states) through
+          the blocked Kron split over the ranks (every block's dw rows,
+          ShardedJointKronMatvec) against its single-card Kron solve in
+          this process: e0 1e-10, dens, docc, φ, G, F 1e-8, gathers > 0
+          on each rank. The ranks' results come back through a temporary
+          directory under build/; a rank that fails or outlives
+          MESH_TIMEOUT fails the phase. Then (e) the edtpu_site C driver
+          as MESH_WORLD processes of one group (RANK, WORLD_SIZE,
+          MASTER_ADDR, MASTER_PORT, as torchrun sets them) at the n2b4
+          golden's configuration with lanc_dim_threshold
+          MESH_CAPI_THRESHOLD, so that its largest sectors ((5,5):
+          63,504 states) split through B1's row ranges: each rank's
+          numbers held to the golden at TOL, rank 0 alone writing files,
+          each rank's launch log with B1 launches and gathers
   joint   the superc / nonsu2 modes in complex128 (no kernel of the four
           is on this path: the JAX joint operators are plain jnp, the
           port's are PyTorch): (a) the joint golden
@@ -143,10 +159,10 @@ power-step entry for B3, the row-gather Lanczos for B4, and for B1 also
 the second DMFT iteration, the extras golden's solves and Krylov
 chains, the ineq golden's sweeps, config 2's two-site sweep and its
 Krylov chains, each C driver, whose process writes its counts at
-finalize, and each mesh rank's sharded solve, counted in the rank's
-process) runs with every launch counter set to 0 just before it and read
-just after. The line before
-the last is the kernel report (JSON), printed only once every phase has
+finalize, each mesh rank's sharded solve, counted in the rank's
+process, and each rank of the C driver on a group) runs with every
+launch counter set to 0 just before it and read just after. The line
+before the last is the kernel report (JSON), printed only once every phase has
 run: ``launches`` from those paths, ``max_abs_err``, ``ms`` (L2 flushed),
 ``ms_back_to_back``, ``plain_ms`` and ``library_ms`` (the faster of the
 yardsticks, named by ``library_call``) from the kernel phase at config 2's
@@ -392,6 +408,93 @@ def phase_build(report: dict) -> None:
         if any(k in line for k in ("Compiling entry", "registers", "spill",
                                    "error")):
             print(f"[build]   {line.strip()}")
+    _native_report(report)
+
+
+NATIVE_REPS = 20          # timed passes over config 3's registers
+
+
+def _enumerate_all(registers) -> float:
+    """Seconds of NATIVE_REPS passes of fock.enumerate_states over
+    ``registers`` ((ns, n) pairs), its cache cleared before each pass."""
+    from edipack_tpu_torch import fock
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_REPS):
+        fock.enumerate_states.cache_clear()
+        for ns, n in registers:
+            fock.enumerate_states(ns, n)
+    return (time.perf_counter() - t0) / NATIVE_REPS
+
+
+def _native_report(report: dict) -> None:
+    """(f) the native host library: which enumeration runs, native against
+    NumPy (EDIPACK_TPU_TORCH_NO_NATIVE=1) over config 3's registers (the
+    ten-level spin registers and the twenty-level joint one of its Sz=0
+    sector), both equal, and the enumeration's share of config 3's
+    largest joint host build (Sz=0, 184,756 states: its basis and
+    build_joint_sector_op, cold caches; the enumeration's time from
+    cProfile)."""
+    import cProfile
+    import pstats
+    from edipack_tpu_torch import fock, native
+    from edipack_tpu_torch.bath.dmft_bath import init_bath
+    from edipack_tpu_torch.config import default_config
+    from edipack_tpu_torch.models.joint import build_joint_sector_op
+    from edipack_tpu_torch.profile_solve import CONFIG3
+    from edipack_tpu_torch.sectors import SectorTable
+    from edipack_tpu_torch.umatrix import build_umatrix
+    t0 = time.perf_counter()
+    on = native.available()
+    load_s = time.perf_counter() - t0
+    if not on:
+        fail(f"native: the host library is off ({native.NO_NATIVE_ENV} is "
+             f"set)")
+    registers = [(10, n) for n in range(11)] + [(20, 10)]
+    nat = _enumerate_all(registers)
+    arrays = [fock.enumerate_states(*r) for r in registers]
+    os.environ[native.NO_NATIVE_ENV] = "1"
+    try:
+        npy = _enumerate_all(registers)
+        same = all(np.array_equal(fock.enumerate_states(*r), a)
+                   for r, a in zip(registers, arrays))
+    finally:
+        del os.environ[native.NO_NATIVE_ENV]
+        fock.enumerate_states.cache_clear()
+    cfg = default_config(**CONFIG3, ed_verbose=0)
+    terms = (np.zeros((1, 1, 2, 2)), build_umatrix(cfg), init_bath(cfg))
+
+    def host_build():
+        """Sz=0's basis (a new Sector: its states enumerated anew) and its
+        operator's host build."""
+        sec = SectorTable(cfg).by_qn(("sz", 0))
+        build_joint_sector_op(cfg, sec, *terms)
+        return sec.dim
+    t0 = time.perf_counter()
+    dim = host_build()
+    build_s = time.perf_counter() - t0
+    fock.enumerate_states.cache_clear()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(host_build)
+    prof_s = time.perf_counter() - t0
+    enum_s = sum(st[3] for (path, _, fn), st in
+                 pstats.Stats(prof).stats.items()
+                 if fn == "enumerate_states" and path.endswith("fock.py"))
+    report["native"] = dict(available=on, load_s=load_s, native_ms=nat * 1e3,
+                            numpy_ms=npy * 1e3, build_s=build_s,
+                            build_profiled_s=prof_s, enumerate_s=enum_s,
+                            share=enum_s / prof_s, sector=dim)
+    print(f"[build] (f) native host library: available {on} "
+          f"({native.library_path().relative_to(ROOT)}, g++ and load "
+          f"{load_s:.2f} s); config 3's registers (10 bits, n = 0..10, and "
+          f"20 bits, n = 10) enumerated in {nat * 1e3:.3f} ms natively, "
+          f"{npy * 1e3:.3f} ms by NumPy, equal {same}; config 3's Sz=0 "
+          f"basis and host build ({dim} states) {build_s:.3f} s cold, under "
+          f"cProfile {prof_s:.3f} s, of it "
+          f"the enumeration {enum_s * 1e3:.3f} ms, a share of "
+          f"{enum_s / prof_s:.2e}")
+    if not same:
+        fail("native: the native and NumPy enumerations differ")
 
 
 def _fused_shape(report: dict, label: str, op, norb: int) -> None:
@@ -2132,6 +2235,19 @@ MESH_TIMEOUT = 600        # seconds: the ranks' group timeout and the wait
 MESH_SEED = 29            # V3 of the row-range check
 MESH_REPS = 10            # timed sharded matvecs (collective: every rank)
 MESH_IFNAME = "lo"        # gloo's interface (GLOO_SOCKET_IFNAME) when unset
+# (d) config 3 through the sharded blocked Kron, cut in depth as (c): one
+# level a sector, the Sz < 0 sectors as twins of the Sz > 0 ones (at the
+# joint phase's depth, six levels a sector and no twins, it took 115.55 s
+# sharded against 10.88 s on one card with the ranks alone on the card;
+# PERF.md, PR 13 call 1)
+MESH_KRON = dict(lanc_nstates_sector=1, ed_twin=True)
+TOL_KRON = dict(e0=1e-10, dens=1e-8, docc=1e-8, phi=1e-8, gimp=1e-8,
+                impf=1e-8)
+# (e) the edtpu_site C driver on MESH_WORLD ranks at the n2b4 golden's
+# configuration: its sectors above 4·MESH_CAPI_THRESHOLD states with an even
+# dw dimension split, the largest ((5,5): 63,504 states) among them, through
+# B1's row ranges; below MESH_CAPI_THRESHOLD the sectors go dense
+MESH_CAPI_THRESHOLD = 8192
 
 
 def _mesh_sector77():
@@ -2180,12 +2296,50 @@ def _mesh_solve(device, workdir: str) -> dict:
     return out
 
 
+def _mesh_kron(device, workdir: str) -> dict:
+    """(d) BASELINE config 3 (superc, Sz=0 184,756 states) through the
+    blocked Kron (ed_joint_kron="always") and the entry points on
+    ``device``, in ``workdir``: on the ranks of an initialized group its
+    sectors above 4·lanc_dim_threshold split (ShardedJointKronMatvec)."""
+    import torch
+    import edipack_tpu_torch.main as ed
+    from edipack_tpu_torch.config import default_config
+    from edipack_tpu_torch.parallel import mesh as pm
+    from edipack_tpu_torch.profile_solve import CONFIG3
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    cfg = default_config(**CONFIG3, ed_verbose=0, ed_joint_kron="always",
+                         **MESH_KRON)
+    ed.ed_init_solver(cfg=cfg, device=device)
+    ed.ed_set_hloc(np.zeros((1, 1, 2, 2)))
+    torch.cuda.synchronize()
+    pm.n_gathers = pm.n_reduces = 0
+    t0 = time.perf_counter()
+    res = ed.ed_solve()
+    torch.cuda.synchronize()
+    z = _z(cfg.beta)
+    out = dict(e0=float(res.e0), wall_s=time.perf_counter() - t0,
+               timings=res.timings, matvecs=res.n_matvecs,
+               gathers=pm.n_gathers, reduces=pm.n_reduces,
+               largest=max(res.table.get_dim(i)
+                           for i in range(len(res.table))))
+    for key, arr in (("dens", ed.ed_get_dens()), ("docc", ed.ed_get_docc()),
+                     ("phi", ed.ed_get_phi()), ("gimp", ed.ed_get_gimp(z)),
+                     ("impf", ed.ed_build_impf(z))):
+        arr = np.asarray(arr)
+        out[key] = (np.stack([arr.real, arr.imag], -1) if np.iscomplexobj(arr)
+                    else arr).tolist()
+    ed.ed_finalize_solver()
+    return out
+
+
 def mesh_rank(rank: int, out_dir: str, backend: str) -> int:
     """One rank of the mesh phase (``chip_smoke.py --mesh-rank R DIR
     BACKEND``): (a) B1 and B2 on this rank's rows of the (7,7) sector,
     written to DIR, and the sharded matvec timed; (b) the (7,7) lowest
     level through the sharded B1 operator; (c) config 2 at MESH_NBATH
-    through ed_solve. Its numbers go to DIR/rank<R>.json."""
+    through ed_solve; (d) config 3 through the sharded blocked Kron. Its
+    numbers go to DIR/rank<R>.json."""
     import datetime
     import traceback
     import torch
@@ -2249,8 +2403,15 @@ def mesh_rank(rank: int, out_dir: str, backend: str) -> int:
               f"{out['solve']['wall_s']:.2f} s, {out['solve']['timings']}, "
               f"{pm.n_gathers} gathers, {pm.n_reduces} all-reduces",
               flush=True)
+        torch.cuda.empty_cache()
+        out["kron"] = _mesh_kron(dev, os.path.join(out_dir, f"kron{rank}"))
+        print(f"[mesh rank {rank}] config 3 sharded Kron: wall "
+              f"{out['kron']['wall_s']:.2f} s, {out['kron']['timings']}, "
+              f"{out['kron']['gathers']} gathers, {out['kron']['reduces']} "
+              f"all-reduces", flush=True)
         print(f"[mesh rank {rank}] done: (7,7) e0 {out['e77']['e0']:.12f}, "
-              f"nbath {MESH_NBATH} e0 {out['solve']['e0']:.12f}", flush=True)
+              f"nbath {MESH_NBATH} e0 {out['solve']['e0']:.12f}, config 3 "
+              f"e0 {out['kron']['e0']:.12f}", flush=True)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
         dist.destroy_process_group()
@@ -2306,6 +2467,133 @@ def _mesh_ranks(out_dir: str, backend: str) -> list:
     return out
 
 
+def _mesh_capi_start(out_dir: str, backend: str) -> dict:
+    """(e) start the edtpu_site C driver as MESH_WORLD processes of one
+    group (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT set, as torchrun sets
+    them), each in a directory of its own, at the n2b4 golden's
+    configuration with files written (:func:`_mesh_capi_check` waits for
+    them)."""
+    import socket
+    from edipack_tpu_torch.capi import build
+    with open(GOLDEN) as fh:
+        gold = json.load(fh)
+    t0 = time.perf_counter()
+    lib = build.build()
+    exe = os.path.join(out_dir, "edtpu_site")
+    out = subprocess.run(
+        ["gcc", "-O2", *build.include_flags(), "-o", exe,
+         os.path.join(build.CAPI_DIR, "drivers", "edtpu_site.c"),
+         *build.link_flags(lib)], capture_output=True, text=True)
+    if out.returncode != 0:
+        fail(f"mesh (e): edtpu_site does not build:\n{out.stderr}")
+    config = dict(gold["config"], lmats=gold["nmats"],
+                  lanc_dim_threshold=MESH_CAPI_THRESHOLD,
+                  ed_fused_matvec="always", ed_write_files=True,
+                  ed_verbose=2)
+    path_in = os.path.join(out_dir, "capi.in")
+    with open(path_in, "w") as fh:
+        for k, v in config.items():
+            v = ",".join(map(str, v)) if isinstance(v, list) else v
+            fh.write(f"{k.upper()}={v}\n")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT, WORLD_SIZE=str(MESH_WORLD),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               OMP_NUM_THREADS=str(LANE_THREADS),
+               EDIPACK_TPU_TORCH_GROUP_TIMEOUT=str(MESH_TIMEOUT),
+               EDIPACK_TPU_TORCH_DEVICE="cuda" if backend == "nccl"
+               else "cuda:0",
+               EDIPACK_TPU_TORCH_LAUNCH_LOG=os.path.join(
+                   out_dir, "capi_{rank}.json"))
+    env.setdefault("GLOO_SOCKET_IFNAME", MESH_IFNAME)
+    procs = []
+    for r in range(MESH_WORLD):
+        cwd = os.path.join(out_dir, f"capi{r}")
+        os.makedirs(cwd)
+        # output to files: the lane reads them once the ranks are done
+        with open(os.path.join(out_dir, f"capi{r}.out"), "w") as so, \
+                open(os.path.join(out_dir, f"capi{r}.err"), "w") as se:
+            procs.append(subprocess.Popen(
+                [exe, path_in, "1", str(config["norb"]),
+                 str(config["lmats"])], cwd=cwd, stdout=so, stderr=se,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))))
+    return dict(procs=procs, t0=t0, gold=gold, config=config,
+                out_dir=out_dir)
+
+
+def _mesh_capi_check(started: dict) -> dict:
+    """(e) wait for the C driver's ranks (killing them MESH_TIMEOUT after
+    the check starts) and hold each rank's printed numbers to the golden
+    at TOL, rank 0 alone writing files, each rank's launch log with B1
+    launches and mesh gathers. Returns its wall, each rank's launch log
+    and deviations."""
+    procs, gold, out_dir = started["procs"], started["gold"], \
+        started["out_dir"]
+    norb, lm = started["config"]["norb"], started["config"]["lmats"]
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - started["t0"]
+    outs = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(out_dir, f"capi{r}.out")) as fo, \
+                open(os.path.join(out_dir, f"capi{r}.err")) as fe:
+            outs.append((fo.read(), fe.read()))
+    result = dict(wall_s=wall, threshold=MESH_CAPI_THRESHOLD, ranks=[])
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or "Traceback" in se:
+            fail(f"mesh (e): rank {r} rc {p.returncode}\n{so[-2000:]}\n"
+                 f"{se[-4000:]}")
+        vals = {}
+        for line in so.splitlines():
+            key, *rest = line.split()
+            if key in ("EVALS", "DENS", "DOCC", "MAGZ", "EIMP", "G"):
+                vals[key] = np.array([float(x) for x in rest[1:]])
+        g = vals["G"][0::2] + 1j * vals["G"][1::2]
+        got = dict(e0=vals["EVALS"].min(), evals=np.sort(vals["EVALS"]),
+                   dens=vals["DENS"], docc=vals["DOCC"],
+                   energies=vals["EIMP"],
+                   gimp=g.reshape(1, 1, norb, norb, lm))
+        devs = {}
+        for k, v in got.items():
+            want = _cplx(gold[k]) if k == "gimp" else np.sort(gold[k]) \
+                if k == "evals" else np.asarray(gold[k])
+            if np.shape(v) != np.shape(want):
+                fail(f"mesh (e): rank {r} {k} has shape {np.shape(v)}, the "
+                     f"golden {np.shape(want)}")
+            devs[k] = float(np.max(np.abs(v - want)))
+        with open(os.path.join(out_dir, f"capi_{r}.json")) as fh:
+            log = json.load(fh)
+        files = sorted(os.listdir(os.path.join(out_dir, f"capi{r}")))
+        mesh_line = [ln for ln in so.splitlines() if "Mesh(" in ln][:1]
+        print(f"[mesh] (e) rank {r} edtpu_site (lanc_dim_threshold "
+              f"{MESH_CAPI_THRESHOLD}): {mesh_line}, launch log {log}, "
+              f"{len(files)} files written; deviations from the golden "
+              + ", ".join(f"{k} {v:.3e}" for k, v in devs.items()))
+        for k, v in devs.items():
+            if not v <= TOL["e0" if k == "evals" else k]:
+                fail(f"mesh (e): rank {r} {k} off the golden by {v:.3e}")
+        if log["B1"] <= 0 or log["gathers"] <= 0 or not mesh_line:
+            fail(f"mesh (e): rank {r} launched no B1, gathered nothing or "
+                 f"printed no mesh: {log}")
+        if (r == 0) != bool(files):
+            fail(f"mesh (e): rank {r} wrote {files}")
+        result["ranks"].append(dict(log=log, devs=devs, files=len(files)))
+    print(f"[mesh] (e) the C driver on {MESH_WORLD} ranks, beside the "
+          f"ranks of (a)-(d): {wall:.1f} s (the library and the driver "
+          f"built in it)", flush=True)
+    return result
+
+
 def phase_mesh(report: dict) -> None:
     """Two ranks of torch.distributed on the card (gloo, host-staged, when
     there is one card; NCCL, one card a rank, when there are two): B1/B2
@@ -2348,14 +2636,30 @@ def phase_mesh(report: dict) -> None:
         finally:
             os.chdir(cwd)
         torch.cuda.empty_cache()
+        try:
+            kron = _mesh_kron(DEVICE, os.path.join(out_dir, "kron_single"))
+        finally:
+            os.chdir(cwd)
+        torch.cuda.empty_cache()
+        print(f"[mesh] single card: config 3 blocked Kron e0 "
+              f"{kron['e0']:.12f} in {kron['wall_s']:.2f} s "
+              f"({kron['matvecs']} matvecs)", flush=True)
         print(f"[mesh] single card: (7,7) e0 {e77:.12f} in {t77:.2f} s; B1 "
               f"{ref['b1_ms']:.4f} ms, B2 {ref['b2_ms']:.4f} ms back to "
               f"back; nbath {MESH_NBATH} solve e0 {plain['e0']:.12f} in "
               f"{plain['wall_s']:.2f} s ({plain['matvecs']} matvecs, B1 "
               f"{plain['launches']})", flush=True)
         t0 = time.perf_counter()
-        ranks = _mesh_ranks(out_dir, backend)
+        capi = _mesh_capi_start(out_dir, backend)
+        try:
+            ranks = _mesh_ranks(out_dir, backend)
+        except BaseException:
+            for p in capi["procs"]:
+                p.kill()
+                p.wait()
+            raise
         wall_ranks = time.perf_counter() - t0
+        capi = _mesh_capi_check(capi)
         for rk in ranks:
             r = rk["rank"]
             for tag in ("b1", "b2"):
@@ -2398,11 +2702,29 @@ def phase_mesh(report: dict) -> None:
                     fail(f"mesh rank {r}: sharded solve {k} off by {v:.3e}")
             if sv["launches"] <= 0:
                 fail(f"mesh rank {r}: the sharded solve launched no B1")
+            kv = rk["kron"]
+            devs = {k: float(np.max(np.abs(np.asarray(kv[k])
+                                           - np.asarray(kron[k]))))
+                    for k in TOL_KRON}
+            print(f"[mesh] (d) rank {r} config 3 sharded Kron (largest "
+                  f"sector {kv['largest']}): e0 {kv['e0']:.12f}, wall "
+                  f"{kv['wall_s']:.2f} s (single card {kron['wall_s']:.2f} "
+                  f"s), {kv['matvecs']} matvecs, {kv['gathers']} gathers, "
+                  f"{kv['reduces']} all-reduces; phases {kv['timings']}; "
+                  f"deviations "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in devs.items()))
+            for k, v in devs.items():
+                if not v <= TOL_KRON[k]:
+                    fail(f"mesh rank {r}: config 3 sharded Kron {k} off by "
+                         f"{v:.3e}")
+            if kv["gathers"] <= 0:
+                fail(f"mesh rank {r}: config 3 made no sharded Kron gather")
+        print(f"[mesh] ranks done in {wall_ranks:.1f} s")
         report["mesh"] = dict(backend=backend, world=MESH_WORLD,
                               wall_ranks_s=wall_ranks, single=plain,
-                              e77=e77, ranks=ranks,
-                              b1_ms=ref["b1_ms"], b2_ms=ref["b2_ms"])
-        print(f"[mesh] ranks done in {wall_ranks:.1f} s")
+                              e77=e77, ranks=ranks, kron_single=kron,
+                              capi=capi, b1_ms=ref["b1_ms"],
+                              b2_ms=ref["b2_ms"])
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -2474,6 +2796,8 @@ def kernel_report(report: dict) -> list:
              launches_capi=report["B1_launches_capi"],
              launches_mesh_solve=[r["solve"]["launches"]
                                   for r in report["mesh"]["ranks"]],
+             launches_mesh_capi=[r["log"]["B1"] for r in
+                                 report["mesh"]["capi"]["ranks"]],
              max_abs_err=max(s["err64"] for s in report["fused"]),
              ms=big["b1"], ms_back_to_back=big["b1_b2b"],
              plain_ms=big["b1_plain"],

@@ -14,6 +14,12 @@
  *    upstream header declares std::complex<double>* — we follow the f90.
  *  - axis: 0="m", 1="r" (2="t" for chi); typ: 0="n", 1="a"
  *  - lattice bath arrays are (Nlat, Nb) Fortran-order
+ *  - the MPI flags (flag_mpi, mpi_lanc) are accepted and ignored: a driver
+ *    launched as N processes with WORLD_SIZE, RANK, MASTER_ADDR and
+ *    MASTER_PORT set (torchrun --no-python --nproc-per-node N ./driver)
+ *    joins one process group at its first call and splits its large
+ *    sectors over the ranks, as edipack_tpu.h describes; rank 0 alone
+ *    writes files, and finalize_solver leaves the group
  */
 #ifndef EDIPACK_COMPAT_H
 #define EDIPACK_COMPAT_H

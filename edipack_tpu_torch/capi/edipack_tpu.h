@@ -6,6 +6,20 @@
  * its path). EDIPACK_TPU_TORCH_DEVICE=cuda|cuda:N|cpu picks the device
  * (default cuda); edtpu_init fails for another value.
  *
+ * Several ranks: launch the driver as N processes with WORLD_SIZE=N, RANK,
+ * MASTER_ADDR and MASTER_PORT set, e.g.
+ *   torchrun --no-python --nproc-per-node N ./driver ARGS...
+ * edtpu_init then joins one torch.distributed group and every solve splits
+ * its large sectors over the ranks (dim > 4*LANC_DIM_THRESHOLD), each rank
+ * running the same calls: NCCL, the card cuda:LOCAL_RANK a rank, when
+ * EDIPACK_TPU_TORCH_DEVICE is cuda and there are N cards; gloo otherwise
+ * (EDIPACK_TPU_TORCH_DEVICE=cuda:K for ranks sharing card K, or cpu), over
+ * the loopback interface unless GLOO_SOCKET_IFNAME is set.
+ * EDIPACK_TPU_TORCH_GROUP_TIMEOUT (seconds, default 600) bounds the
+ * rendezvous: a group that does not form fails edtpu_init, its message in
+ * edtpu_last_error(). Rank 0 alone writes files; edtpu_finalize leaves the
+ * group. Every rank gets the same results.
+ *
  * Array conventions follow the reference bindings: the packed bath vector is
  * the same layout as EDIpack's user bath array; Hloc is passed as
  * [Nspin*Norb x Nspin*Norb] row-major (real + imaginary parts); Green's

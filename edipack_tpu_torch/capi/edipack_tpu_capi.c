@@ -10,7 +10,11 @@
  * checks EDIPACK_TPU_TORCH_DEVICE (cuda, cuda:N or cpu; default cuda)
  * against that list and fails for CUDA where it is absent; a failure makes
  * edtpu_init return -1 with the Python message in edtpu_last_error().
- * Every solver the library makes runs on that device.
+ * Every solver the library makes runs on that device. With WORLD_SIZE > 1
+ * (and RANK, MASTER_ADDR, MASTER_PORT) in the environment, that import
+ * also joins a torch.distributed group (capihelp.join_group); a group that
+ * does not form fails edtpu_init the same way, and edtpu_finalize leaves
+ * it (capihelp.finalize_library).
  *
  * EDTPU_PYTHON (set by capi/build.py) names the interpreter that built
  * the library; the embedded interpreter starts as that program, so it
@@ -84,7 +88,7 @@ void edtpu_finalize(void) {
   if (g_mod) {
     PyObject *r = PyObject_CallMethod(g_mod, "ed_finalize_solver", NULL);
     Py_XDECREF(r);
-    r = call_help("write_launch_log", NULL);
+    r = call_help("finalize_library", NULL);
     Py_XDECREF(r);
     Py_CLEAR(g_mod);
   }

@@ -474,4 +474,4 @@ def finalize_solver(nineq: int) -> None:
         H._ineq = None
     else:
         M.ed_finalize_solver()
-    H.write_launch_log()
+    H.finalize_library()

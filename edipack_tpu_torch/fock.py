@@ -47,11 +47,16 @@ def enumerate_states(ns: int, n: int) -> np.ndarray:
     """All ``ns``-bit integers with popcount ``n``, ascending (int64).
 
     The ascending order matches the reference sector maps built by upward
-    popcount scan (ED_SECTOR.f90 build_sector:165-373)."""
+    popcount scan (ED_SECTOR.f90 build_sector:165-373). Enumerated by the
+    native host library's Gosper enumeration (edipack_tpu_torch/native),
+    or by NumPy under EDIPACK_TPU_TORCH_NO_NATIVE=1."""
     if n < 0 or n > ns:
         return np.empty(0, dtype=np.int64)
     if n == 0:
         return np.zeros(1, dtype=np.int64)
+    from . import native
+    if native.available():
+        return native.enum_states(ns, n)
     if ns <= 20:
         allst = np.arange(1 << ns, dtype=np.int64)
         return allst[popcount(allst) == n]

@@ -18,9 +18,11 @@ The operator's vector layout is the concatenation of per-block
 (dim_ph, ddw, dup) tensors ("blocked layout"); ``to_internal_flat`` /
 ``from_internal_flat`` convert to and from the sorted joint basis by one
 fixed permutation, the contract the Lanczos and GF code already uses for
-internal-layout operators. The cross-block terms of one (source, target)
-block pair are applied together (or in groups of at most ``gather_chunk``
-terms): one stacked two-axis gather and one weighted reduction a group
+internal-layout operators. Under a mesh of ranks (parallel.mesh),
+:class:`ShardedJointKronMatvec` splits every block's dw rows over them.
+The cross-block terms of one (source, target) block pair are applied
+together (or in groups of at most ``gather_chunk`` terms): one stacked
+two-axis gather and one weighted reduction a group
 (:meth:`JointKronMatvec._gather_take`, :meth:`_gather_reduce`).
 
 Parity target: the dense matrix of this operator under the sorted
@@ -217,9 +219,10 @@ class JointKronMatvec:
         self.dtype = CDTYPE
         self.device = device
         self.n_calls = 0
-        self._graphs = {}       # input shape -> CUDA graph of apply() and
-        #                         its static input and output (__call__)
+        self._graphs = {}       # input shape -> CUDA graph of _body() and
+        #                         its static input and output (_run)
         self._pool = None       # the one memory pool of those graphs
+        self._row_parts = {}    # output rows -> the operands cut to them
         # terms of one (source, target) block pair gathered together, at
         # most (0: all of them). edipack_tpu takes 6 on the TPU; on the H100
         # one group a pair is 1.26-1.29x faster at the 2.7M-state sectors
@@ -240,6 +243,7 @@ class JointKronMatvec:
 
         self.el = factors(acc)
         self.has_ph = cfg.nph > 0
+        self.eph = None
         if self.has_ph:
             ph_mat, ph_x = _phonon_matrices(cfg)
             self.ph_mat = put(np.real(ph_mat))
@@ -318,14 +322,18 @@ class JointKronMatvec:
         t2 = t2 * usgn[None, :, None, :]
         return (t2 * wdw[None, :, :, None]).sum(1)
 
-    def _apply_el(self, vb: List[torch.Tensor], parts) -> List[torch.Tensor]:
-        """One electronic application on the per-block tensor list."""
+    def _apply_el(self, vb: List[torch.Tensor], parts,
+                  rows=None) -> List[torch.Tensor]:
+        """One electronic application on the per-block tensor list; with
+        ``rows`` ((lo, hi) per block), each block's output rows [lo, hi)
+        only, from ``parts`` restricted to them (:meth:`_sliced`)."""
         diag, hup_t, hdw, gathers = parts
         out = []
         for i, v in enumerate(vb):
-            w = diag[i] * v
+            vr = v if rows is None else v[:, rows[i][0]:rows[i][1]]
+            w = diag[i] * vr
             if hup_t[i] is not None:
-                w += v @ hup_t[i]
+                w += vr @ hup_t[i]
             if hdw[i] is not None:
                 w += torch.matmul(hdw[i], v)
             out.append(w)
@@ -333,6 +341,28 @@ class JointKronMatvec:
             out[dst] += self._gather_reduce(
                 self._gather_take(vb[src], dw_idx, up_idx), wdw, usgn)
         return out
+
+    def _sliced(self, rows):
+        """The operands of :meth:`apply` restricted to the output rows
+        ``rows`` ((lo, hi) per block): the diagonal's and hdw's rows, each
+        gather group's dw_idx and wdw columns of its target block;
+        contiguous copies, made once for each ``rows`` and kept on the
+        device."""
+        key = tuple(rows)
+        if key not in self._row_parts:
+            sl = [slice(lo, hi) for lo, hi in rows]
+
+            def cut(parts):
+                diag, hup_t, hdw, gathers = parts
+                return ([d[s].contiguous() for d, s in zip(diag, sl)], hup_t,
+                        [None if h is None else h[s].contiguous()
+                         for h, s in zip(hdw, sl)],
+                        [(src, dst, dw_idx[:, sl[dst]].contiguous(), up_idx,
+                          wdw[:, sl[dst]].contiguous(), usgn)
+                         for src, dst, dw_idx, up_idx, wdw, usgn in gathers])
+            self._row_parts[key] = (
+                cut(self.el), None if self.eph is None else cut(self.eph))
+        return self._row_parts[key]
 
     def split_blocks(self, v: torch.Tensor) -> List[torch.Tensor]:
         """Per-block (rows, ddw, dup) views; the rows are the phonon axis,
@@ -342,31 +372,48 @@ class JointKronMatvec:
                 .reshape(-1, b.ddw, b.dup) for b in self.blocks]
 
     def join_blocks(self, vb: List[torch.Tensor]) -> torch.Tensor:
-        return torch.cat([w.reshape(w.shape[0], -1) for w in vb], dim=1)
+        return torch.cat([w.flatten(1) for w in vb], dim=1)
 
-    def apply(self, v: torch.Tensor) -> torch.Tensor:
+    def apply(self, v: torch.Tensor, rows=None) -> torch.Tensor:
         """H·v on the blocked layout, ``v`` (..., dim): a few small
-        kernels a block and a gather group."""
+        kernels a block and a gather group. ``rows`` ((lo, hi) per block):
+        only those dw rows of each block's output, from the whole ``v``;
+        the result is then laid out as (..., dim_ph, Σ_b (hi_b - lo_b) ·
+        dup_b), the blocks' rows in block order in each phonon plane."""
         lead = v.shape[:-1]
         vb = self.split_blocks(v.to(self.dtype))
-        out = self._apply_el(vb, self.el)
+        el, eph = (self.el, self.eph) if rows is None \
+            else self._sliced(rows)
+        out = self._apply_el(vb, el, rows)
         if self.has_ph:
             # phonon oscillator + e-ph: X ⊗ (eph_diag + eph hops), over the
             # phonon axis of each vector of the batch
-            ev = self._apply_el(vb, self.eph)
+            ev = self._apply_el(vb, eph, rows)
             for i in range(len(out)):
-                vi = vb[i].reshape(-1, self.dim_ph, *vb[i].shape[1:])
+                vi = vb[i] if rows is None else vb[i][:, slice(*rows[i])]
+                vi = vi.reshape(vi.shape[0] // self.dim_ph, self.dim_ph,
+                                *vi.shape[1:])
                 ei = ev[i].reshape(vi.shape)
                 out[i] += torch.einsum("pq,bqdu->bpdu", self.ph_mat,
                                        vi).reshape(out[i].shape)
                 out[i] += torch.einsum("pq,bqdu->bpdu", self.ph_x,
                                        ei).reshape(out[i].shape)
-        return self.join_blocks(out).reshape(*lead, self.dim)
+        w = self.join_blocks(out)
+        return w.reshape(*lead, self.dim_ph * w.shape[1])
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
+        """What a call computes from the input it replays (apply)."""
+        return self.apply(x)
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         self.n_calls += 1
+        return self._run(v)
+
+    def _run(self, v: torch.Tensor) -> torch.Tensor:
+        """:meth:`_body` of ``v``: eager on the CPU; on the card the replay
+        of its CUDA graph for ``v``'s shape."""
         if v.device.type != "cuda":
-            return self.apply(v)
+            return self._body(v)
         # on the card the launches of apply(), not its work, set the time of
         # a small sector's matvec (config 3's blocked-Kron solve took 3x the
         # ELL's): they are captured once for each input shape (one vector,
@@ -388,13 +435,13 @@ class JointKronMatvec:
         side = torch.cuda.Stream(v.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            self.apply(x)                # warm-up, outside the capture
+            self._body(x)                # warm-up, outside the capture
         stream.wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
-            y = self.apply(x)
+            y = self._body(x)
         return graph, x, y
 
     def to_dense(self) -> np.ndarray:
@@ -404,9 +451,79 @@ class JointKronMatvec:
                            dim=1).cpu().numpy()
 
 
+class ShardedJointKronMatvec(JointKronMatvec):
+    """:class:`JointKronMatvec` with every block's dw rows split over the
+    ranks of ``mesh`` (edipack_tpu's JointKronMatvec under a mesh, which
+    pads each block's dw axis to a mesh multiple and row-shards it): this
+    rank owns rows ``mesh.rows(ddw_b)`` of each block, uneven blocks
+    unpadded. A call gathers v whole, one collective whatever the number
+    of blocks (:meth:`gather`), and computes this rank's rows of H·v
+    (:meth:`JointKronMatvec.apply` with ``rows``); on the card the gather
+    runs outside the CUDA graph, which replays that body from its static
+    input. Takes and returns this rank's rows: in each phonon plane the
+    blocks' rows in block order, (ph, Σ_b rows_b · dup_b), flat or a
+    (B, local dim) block."""
+
+    def __init__(self, cfg: EDConfig, sec: Sector,
+                 acc: BlockedTermAccumulator,
+                 eph_acc: Optional[BlockedTermAccumulator],
+                 device: torch.device, mesh, gather_chunk: int = 0):
+        super().__init__(cfg, sec, acc, eph_acc, device, gather_chunk)
+        self.mesh = mesh
+        self.rows = [mesh.rows(b.ddw) for b in self.blocks]
+        self._sliced(self.rows)
+        # the electronic positions each rank owns, in its local order
+        owned = []
+        for r in range(mesh.world):
+            parts = []
+            for b in self.blocks:
+                lo, hi = mesh.rows(b.ddw, r)
+                parts.append(b.offset + np.arange(lo * b.dup, hi * b.dup))
+            owned.append(np.concatenate(parts))
+        self.local_el = len(owned[mesh.rank])
+        self.local_dim = self.local_el * self.dim_ph
+        self._width = max(len(o) for o in owned)
+        # whole position -> its place among the ranks' padded pieces
+        where = np.empty(self.dim_el, np.int64)
+        for r, o in enumerate(owned):
+            where[o] = r * self._width + np.arange(len(o))
+        self._local_idx = torch.as_tensor(owned[mesh.rank], device=device)
+        self._unpack = torch.as_tensor(where, device=device)
+
+    def local(self, v: torch.Tensor) -> torch.Tensor:
+        lead = v.shape[:-1]
+        return v.reshape(*lead, self.dim_ph, self.dim_el).index_select(
+            -1, self._local_idx).reshape(*lead, self.local_dim)
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        """The whole blocked vector (or block) from every rank's rows: each
+        rank's rows padded to the longest rank's, one all-gather, one
+        index_select into place."""
+        lead = v.shape[:-1]
+        x = v.reshape(-1, self.local_el)
+        if self.local_el < self._width:
+            x = torch.cat([x, x.new_zeros(x.shape[0],
+                                          self._width - self.local_el)], 1)
+        world = self.mesh.world
+        full = self.mesh.all_gather_rows(x.reshape(-1), world * x.numel(), 0)
+        full = full.view(world, -1, self._width).transpose(0, 1)
+        return full.reshape(-1, world * self._width).index_select(
+            1, self._unpack).reshape(*lead, self.dim)
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(x, self.rows)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        self.n_calls += 1
+        return self._run(self.gather(v))
+
+
 def build_joint_kron_op(cfg: EDConfig, sec: Sector, hloc, um, bath,
-                        device: torch.device,
-                        hloc_anomalous=None) -> JointKronMatvec:
+                        device: torch.device, hloc_anomalous=None,
+                        mesh=None) -> JointKronMatvec:
+    """The sector's blocked-Kron operator; with ``mesh``
+    (parallel.mesh.Mesh), split over its ranks
+    (:class:`ShardedJointKronMatvec`)."""
     from .joint import _enumerate_joint_terms
     if sec.qn[0] not in ("sz", "nt"):
         raise ValueError("blocked-Kron operator requires full (Nup,Ndw) "
@@ -416,4 +533,6 @@ def build_joint_kron_op(cfg: EDConfig, sec: Sector, hloc, um, bath,
     eph = _enumerate_joint_terms(cfg, sec, hloc, um, bath, hloc_anomalous,
                                  acc, lambda: BlockedTermAccumulator(
                                      sec, sec.ns))
+    if mesh is not None:
+        return ShardedJointKronMatvec(cfg, sec, acc, eph, device, mesh)
     return JointKronMatvec(cfg, sec, acc, eph, device)

@@ -11,15 +11,19 @@ split into contiguous row blocks, one a rank.
   non-local terms read the gathered vector (:meth:`Mesh.all_gather_rows`,
   the MPI_Allgatherv of the reference);
 * joint sectors: the electronic rows of the padded-ELL tables
-  (ED_SUPERC/ED_HAMILTONIAN_SUPERC_STORED_HxV.f90:366-432);
+  (ED_SUPERC/ED_HAMILTONIAN_SUPERC_STORED_HxV.f90:366-432), or the dw rows
+  of every (Nup, Ndw) block of the blocked Kron (edipack_tpu's
+  JointKronMatvec under a mesh);
 * dense eigh buckets: each rank diagonalizes its share of a chunk.
 
 The caller initializes the default process group (``torchrun``, or
-``torch.distributed.init_process_group`` with a ``timeout``); the port
-never does. :func:`make_mesh` returns None without a group of more than one
-rank, and every code path then runs as before. Collectives on CUDA tensors
-run where the backend takes them (NCCL); under gloo, which is what two
-ranks sharing one card need, they are staged through host tensors.
+``torch.distributed.init_process_group`` with a ``timeout``); the solver
+never does (the C libraries join one from their environment,
+capihelp.join_group). :func:`make_mesh` returns None without a group of
+more than one rank, and every code path then runs as before. Collectives
+on CUDA tensors run where the backend takes them (NCCL); under gloo,
+which is what two ranks sharing one card need, they are staged through
+host tensors.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ def shard_normal(dim: int, dim_dw: int, lanc_dim_threshold: int,
 
 
 def shard_joint(dim: int, lanc_dim_threshold: int) -> bool:
-    """Whether a joint sector's ELL rows are split."""
+    """Whether a joint sector's rows are split: the ELL's electronic rows,
+    or the dw rows of every block of the blocked Kron."""
     return dim > SHARD_FACTOR * lanc_dim_threshold
 
 
@@ -70,11 +75,12 @@ class Mesh:
                 f"rank={self.rank}, device={self.device}"
                 f"{', host-staged' if self.staged else ''})")
 
-    def rows(self, n: int) -> Tuple[int, int]:
-        """This rank's rows [lo, hi) of an axis of length ``n``: blocks of
-        ceil(n / world), the last one short (or empty)."""
+    def rows(self, n: int, rank: Optional[int] = None) -> Tuple[int, int]:
+        """This rank's (or rank ``rank``'s) rows [lo, hi) of an axis of
+        length ``n``: blocks of ceil(n / world), the last one short (or
+        empty)."""
         chunk = -(-n // self.world)
-        lo = min(n, self.rank * chunk)
+        lo = min(n, (self.rank if rank is None else rank) * chunk)
         return lo, min(n, lo + chunk)
 
     def _host(self, t: torch.Tensor) -> torch.Tensor:

@@ -6,13 +6,16 @@ channels/reconstruction :130-361,640-780, get_Sigma_superc :938-1018,
 ED_OBSERVABLES_SUPERC op :200-250) and ED_NONSU2/ equivalents.
 
 Routing of a sector's matvec (as edipack_tpu's off-TPU branch):
-  * ``ed_sparse_h=False``        — JointMatvecDirect (COO scatter-add);
-  * else ``ed_joint_kron="always"`` — JointKronMatvec (blocked Kron) for Sz
+  * ``ed_joint_kron="always"``   — JointKronMatvec (blocked Kron) for Sz
     and Ntot sectors;
+  * else ``ed_sparse_h=False``   — JointMatvecDirect (COO scatter-add);
   * else                          — JointMatvec (padded ELL), which is what
-    ``"auto"`` means off the TPU; under a mesh of ranks (parallel.mesh),
-    ShardedJointMatvec for a sector of dim > 4·lanc_dim_threshold (the JAX
-    package's rule; the direct and blocked-Kron routes are not split).
+    ``"auto"`` means off the TPU.
+Under a mesh of ranks (parallel.mesh), a sector of dim >
+4·lanc_dim_threshold (the JAX package's rule) is split: the blocked Kron
+as ShardedJointKronMatvec (every block's dw rows), the ELL as
+ShardedJointMatvec (its electronic rows). The direct operator stays whole
+on every rank, as in the JAX package.
 
 GF channel bookkeeping (GFMatrix keys):
   superc: ('g',a,a) up-diag, ('barg',a) dw-diag (Nambu 22), ('gaux',a,b)
@@ -600,14 +603,16 @@ def joint_builders(cfg: EDConfig, table: SectorTable, hloc, um: Umatrix,
 
     def matvec_builder(sec: Sector):
         if sec.index not in mv_cache:
-            if not cfg.ed_sparse_h:
-                mv = JointMatvecDirect(get_op(sec), device)
-            elif use_kron and sec.qn[0] in ("sz", "nt"):
+            split = mesh is not None and shard_joint(sec.dim,
+                                                     cfg.lanc_dim_threshold)
+            if use_kron and sec.qn[0] in ("sz", "nt"):
                 from ..models.joint_kron import build_joint_kron_op
                 mv = build_joint_kron_op(cfg, sec, hloc, um, bath, device,
-                                         hloc_anomalous=hloc_anomalous)
-            elif mesh is not None and shard_joint(sec.dim,
-                                                  cfg.lanc_dim_threshold):
+                                         hloc_anomalous=hloc_anomalous,
+                                         mesh=mesh if split else None)
+            elif not cfg.ed_sparse_h:
+                mv = JointMatvecDirect(get_op(sec), device)
+            elif split:
                 mv = ShardedJointMatvec(get_op(sec), device, mesh)
             else:
                 mv = JointMatvec(get_op(sec), device)
@@ -615,7 +620,9 @@ def joint_builders(cfg: EDConfig, table: SectorTable, hloc, um: Umatrix,
                 nblk = len(getattr(mv, "blocks", []) or [])
                 print(f"[edipack_tpu_torch:DEBUG] joint sector {sec.index} "
                       f"qn={sec.qn} dim={sec.dim} -> {type(mv).__name__}"
-                      + (f" blocks={nblk}" if nblk else ""))
+                      + (f" blocks={nblk}" if nblk else "")
+                      + (" sharded" if getattr(mv, "mesh", None) is not None
+                         else ""))
             mv_cache[sec.index] = mv
         return mv_cache[sec.index]
 

@@ -27,6 +27,8 @@ import edipack_tpu_torch.compat, edipack_tpu_torch.capi.build
 import edipack_tpu_torch.device, edipack_tpu_torch.solver.greens
 import edipack_tpu_torch.ops.lanczos, edipack_tpu_torch.profile_solve
 import edipack_tpu_torch.examples.c.build, edipack_tpu_torch.parallel.mesh
+import edipack_tpu_torch.native
+assert edipack_tpu_torch.native.available()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "edipack_tpu"))
 print(",".join(bad))

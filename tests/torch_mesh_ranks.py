@@ -354,6 +354,81 @@ def sharded_joint(name: str, batch: int = 3) -> dict:
                 dim=whole.dim, local_dim=part.local_dim)
 
 
+def joint_kron_case(name: str):
+    """(config kwargs, hloc, sector qn) of the sharded blocked-Kron checks:
+    the largest sector of joint_case's superc and nonsu2 cases, and the
+    Sz=0 sector of the joint golden's phonon case (tests/joint_cases.py;
+    two of its four blocks have one dw row, so rank 1 owns none of them)."""
+    if name == "phonon":
+        import joint_cases
+        case = joint_cases.CASES["phonon"]
+        return dict(case["config"]), case["hloc"], ("sz", 0)
+    config, hloc = joint_case(name)
+    return config, hloc, ("sz", 0) if name == "superc" else ("nt", 6)
+
+
+def sharded_joint_kron(name: str, batch: int = 3) -> dict:
+    """The sector's operator as joint_builders routes it under the mesh
+    (``ed_joint_kron="always"``, with its ed_verbose=4 line), against the
+    whole JointKronMatvec on a flat vector and a (batch, dim) block of
+    numpy-seeded sorted-basis vectors: this rank's rows against the whole
+    product's (max relative deviation), and the gathered products in the
+    sorted basis (for the JAX package's operator in the test process)."""
+    import contextlib
+    import io
+    import torch
+    from edipack_tpu_torch.bath.dmft_bath import init_bath
+    from edipack_tpu_torch.config import default_config
+    from edipack_tpu_torch.models.joint_kron import build_joint_kron_op
+    from edipack_tpu_torch.parallel import mesh as pm
+    from edipack_tpu_torch.sectors import SectorTable
+    from edipack_tpu_torch.solver.core_joint import joint_builders
+    from edipack_tpu_torch.umatrix import build_umatrix
+    cpu = torch.device("cpu")
+    config, hloc, qn = joint_kron_case(name)
+    cfg = default_config(**{**config, "ed_verbose": 4,
+                            "ed_joint_kron": "always"})
+    table = SectorTable(cfg)
+    sec = table.by_qn(qn)
+    args = (hloc, build_umatrix(cfg), init_bath(cfg))
+    whole = build_joint_kron_op(cfg, sec, *args, cpu)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        part = joint_builders(cfg, table, *args, cpu, mesh=pm.make_mesh(
+            cpu)).matvec_builder(sec)
+    rng = np.random.default_rng(8)
+    v = torch.as_tensor(rng.normal(size=(batch, whole.dim))
+                        + 1j * rng.normal(size=(batch, whole.dim)))
+    vb = torch.stack([whole.to_internal_flat(x) for x in v])
+    pm.n_gathers = 0
+    w_flat, w_block = part(part.local(vb[0])), part(part.local(vb))
+    ref = whole(vb)
+    out = dict(dim=whole.dim, local_dim=part.local_dim, rows=part.rows,
+               gathers=pm.n_gathers, type=type(part).__name__,
+               debug=log.getvalue().strip(),
+               flat=_max_rel(w_flat, part.local(ref[0])),
+               block=_max_rel(w_block, part.local(ref)))
+    full = part.gather(w_block)
+    out["sorted"] = np.stack([whole.from_internal_flat(x).numpy()
+                              for x in full])
+    out["sorted_flat"] = whole.from_internal_flat(part.gather(w_flat)).numpy()
+    out["v"] = v.numpy()
+    return out
+
+
+def joint_golden_case(name: str, **route) -> dict:
+    """A case of the joint golden (tests/joint_cases.py run_case) through
+    the port on the CPU, with the mesh's gathers it made."""
+    import joint_cases
+    from edipack_tpu_torch.parallel import mesh as pm
+    pm.n_gathers = 0
+    out = joint_cases.run_case(joint_cases.modules("edipack_tpu_torch"),
+                               joint_cases.CASES[name], device="cpu",
+                               **route)
+    out["gathers"] = pm.n_gathers
+    return out
+
+
 # -- solves beyond ed_solve -------------------------------------------------
 
 SITES = dict(norb=2, nbath=2, nspin=1, beta=40.0, xmu=0.3, lmats=NMATS,
